@@ -54,7 +54,11 @@ class Config:
     bf16: bool = False  # bf16 compute (f32 params/BN accumulators)
     # Hopper kernels on the eval path (CUDA tensors only)
     use_trunk_kernel: bool = True  # ops/resblocks.residual_trunk
-    use_head_kernel: bool = True  # ops/spade_conv.spade_few_out_conv
+    use_head_kernel: bool = True  # ops/spade_conv.spade_few_out_conv (c4 head)
+    # 128^2 only (JAX: pallas_heads' typed c3, pallas_apply8, pallas_grouped_heads)
+    use_typed_kernel: bool = True  # ops/typed_expand.typed_c3_expand
+    use_apply_kernel: bool = True  # ops/spade_conv.spade_apply8 (SPADE-4)
+    use_head8_kernel: bool = True  # ops/spade_conv.spade_few_out_conv8 (c7 head)
 
     @property
     def clstm_dims(self) -> Tuple[int, ...]:

@@ -30,9 +30,7 @@ namespace {
 
 constexpr int PX = 2;  // output pixels per thread, along one row
 
-__device__ __forceinline__ int row_class(int u, int f) {
-  return u == 0 ? 0 : u == 1 ? 1 : u == f - 2 ? 3 : u == f - 1 ? 4 : 2;
-}
+using agl::row_class;
 
 // x: (B, C, H, W) T; at, bt: (B, H/f, 5, C, W) T; w: (C, K, K, 4) f32;
 // bias: (4,) f32; out: (B, O, H, W) T. Grid (H / rows, B).

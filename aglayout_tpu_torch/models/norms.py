@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from aglayout_tpu_torch.ops.spade_conv import class_expand
+from aglayout_tpu_torch.ops.spade_conv import class_expand, compact_to_flat
 
 
 class MaskedBatchNorm(nn.Module):
@@ -157,23 +157,34 @@ class SPADE(nn.Module):
         b2 = torch.cat([self.mlp_gamma.bias, self.mlp_beta.bias]).to(dt)
         return (X @ w2 + b2).view(b, h, w, 5, 5, -1)
 
-    def folded_affine_tables(self, segmap, f: int):
+    def folded_affine_tables_compact(self, segmap):
         """Per-pixel affine (A, B) with SPADE_eval(x) == x * A + B, folded
-        with the parameter-free BN, as row-class tables for the RGB-head
-        kernel (ops/spade_conv.py).
+        with the parameter-free BN, at class resolution on both axes, for
+        an f-upsampled segmap (f >= 5), as the 128^2 kernels read them
+        (ops/spade_conv.py).
 
-        Returns (A, B), each (B, h, 5, C, w*f): indexed by (row block, row
-        class, channel, full-resolution column).
+        Returns (A, B), each (B, h, 5, C, w*5): indexed by (row block, row
+        class, channel, col block * 5 + col class). JAX's
+        `folded_affine_tables_compact` holds the same values as
+        (B/8, h, 5, w*5, 8, C), 8-image groups being a TPU layout.
         """
         G = self._block_class_grid(segmap)  # (B, h, w, 5r, 5c, 2C)
         b, h, w = G.shape[:3]
-        cols = class_expand(G, 4, f)  # (B, h, w, 5r, f, 2C)
-        T = cols.permute(0, 1, 3, 5, 2, 4).reshape(b, h, 5, G.shape[-1], w * f)
+        T = G.permute(0, 1, 3, 5, 2, 4).reshape(b, h, 5, G.shape[-1], w * 5)
         gamma, beta = T.split(self.norm_features, dim=3)
         a0, b0 = self.param_free_norm.eval_affine()
         a0 = a0.to(gamma.dtype).view(-1, 1)
         b0 = b0.to(gamma.dtype).view(-1, 1)
         return a0 * (1 + gamma), b0 * (1 + gamma) + beta
+
+    def folded_affine_tables(self, segmap, f: int):
+        """The compact tables with their columns expanded to full
+        resolution, for the 64^2 RGB-head kernel (ops/spade_conv.py).
+
+        Returns (A, B), each (B, h, 5, C, w*f): indexed by (row block, row
+        class, channel, full-resolution column).
+        """
+        return tuple(compact_to_flat(t, f) for t in self.folded_affine_tables_compact(segmap))
 
     def _gamma_beta_fused(self, segmap, f: int):
         """Exact full-resolution (gamma, beta), each (B, C, h*f, w*f), f >= 5."""

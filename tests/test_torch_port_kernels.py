@@ -14,13 +14,11 @@ import torch
 from aglayout_tpu.models.norms import SPADE as JaxSPADE
 from aglayout_tpu.ops.pallas_resblocks import residual_trunk as jax_residual_trunk
 from aglayout_tpu.ops.pallas_spade_conv import spade_few_out_conv as jax_spade_few_out_conv
-from aglayout_tpu.utils.torch_import import _TreeBuilder
 from aglayout_tpu_torch.models.generator import init_weights
 from aglayout_tpu_torch.models.layers import ResidualBlock
-from aglayout_tpu_torch.models.norms import SPADE
 from aglayout_tpu_torch.ops.resblocks import residual_trunk, residual_trunk_plain
 from aglayout_tpu_torch.ops.spade_conv import spade_few_out_conv, spade_few_out_conv_plain
-from torch_port_common import nchw, nhwc
+from torch_port_common import nchw, nhwc, spade_pair
 
 torch.set_num_threads(1)
 DT = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -84,19 +82,9 @@ def test_trunk_plain_matches_dense_blocks(dt):
     np.testing.assert_allclose(got.numpy(), x.float().numpy(), atol=tol, rtol=tol)
 
 
-def _spade_pair(c, seg_c, seed=0):
-    """A seeded port SPADE and the JAX SPADE variables holding its weights."""
-    spade = init_weights(SPADE(c, seg_features=seg_c, nhidden=2 * seg_c),
-                         torch.Generator().manual_seed(seed)).eval()
-    t = _TreeBuilder({k: v.numpy() for k, v in spade.state_dict().items()})
-    t.spade("", ())
-    jspade = JaxSPADE(c, seg_features=seg_c, nhidden=2 * seg_c)
-    return spade, jspade, {"params": t.params, "batch_stats": t.stats}
-
-
 def _head_case(b=2, hs=8, f=8, c=8, seg_c=8, k=7, o=3, seed=0):
     rng = np.random.RandomState(seed)
-    spade, jspade, variables = _spade_pair(c, seg_c, seed)
+    spade, jspade, variables = spade_pair(c, seg_c, seed)
     seg = rng.randn(b, hs, hs, seg_c).astype(np.float32)
     x = rng.randn(b, hs * f, hs * f, c).astype(np.float32)
     kern = (0.1 * rng.randn(k, k, c, o)).astype(np.float32)  # JAX HWIO
