@@ -2,9 +2,12 @@
 
 The model and runtime fields keep the names and defaults of
 `aglayout_tpu/config.py`, so a config reads the same in both packages. The
-TPU knobs are gone; each Hopper kernel has one on/off switch instead, which
-takes effect only for CUDA tensors (on the CPU the model always runs its
-plain PyTorch path).
+TPU knobs are gone; each Hopper kernel on the model's path has one on/off
+switch instead (`use_trunk_kernel`, `use_head_kernel`, `use_typed_kernel`,
+`use_apply_kernel`, `use_head8_kernel`, `use_int8_kernel`), which takes
+effect only for CUDA tensors (on the CPU the model always runs its plain
+PyTorch path). `int8_serving` is the JAX package's opt-in approximate
+serving configuration, not a kernel switch: it changes what is computed.
 """
 
 from __future__ import annotations
@@ -52,6 +55,9 @@ class Config:
     data_axis: str = "data"
     num_devices: int = 0  # 0 = all visible
     bf16: bool = False  # bf16 compute (f32 params/BN accumulators)
+    # opt-in approximate int8 serving: the wide ConvLSTM gate convs quantise
+    # their input and weights to int8 (models/convlstm.py). Eval only.
+    int8_serving: bool = False
     # Hopper kernels on the eval path (CUDA tensors only)
     use_trunk_kernel: bool = True  # ops/resblocks.residual_trunk
     use_head_kernel: bool = True  # ops/spade_conv.spade_few_out_conv (c4 head)
@@ -59,6 +65,8 @@ class Config:
     use_typed_kernel: bool = True  # ops/typed_expand.typed_c3_expand
     use_apply_kernel: bool = True  # ops/spade_conv.spade_apply8 (SPADE-4)
     use_head8_kernel: bool = True  # ops/spade_conv.spade_few_out_conv8 (c7 head)
+    # under int8_serving only
+    use_int8_kernel: bool = True  # ops/conv8_int8.conv_small_int8 (ConvLSTM gate conv)
 
     @property
     def clstm_dims(self) -> Tuple[int, ...]:

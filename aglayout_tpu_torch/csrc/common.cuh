@@ -1,6 +1,6 @@
 // Shared helpers for the kernels of this directory: conversions between the
-// compute dtype (float or bf16) and float, vector loads and stores, and the
-// SPADE table geometry.
+// compute dtype (float or bf16) and float, vector loads and stores, the
+// SPADE table geometry, and the int8 tensor-core primitives.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -49,5 +49,44 @@ __device__ __forceinline__ int row_class(int u, int f) {
 
 // Column of the compact (B, H/f, 5, C, 5 * W/f) tables for image column j.
 __device__ __forceinline__ int compact_col(int j, int f) { return (j / f) * 5 + row_class(j % f, f); }
+
+// Shared-memory address of p, as ldmatrix and cp.async take it.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Four 8-row x 16-byte matrices from shared memory: lane l gives the address
+// of row l % 8 of matrix l / 8; register m of lane l then holds bytes
+// 4 (l % 4) .. 4 (l % 4) + 3 of row l / 4 of matrix m.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// d += a * b on the int8 tensor cores: a is 16 x 32 s8 (rows, k contiguous),
+// b is 32 x 8 s8 held k-contiguous per column, d is 16 x 8 s32. Byte for
+// byte the operand layout of the bf16 m16n8k16 product, so ldmatrix feeds it.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four quantised values packed low byte first, as they lie in memory.
+__device__ __forceinline__ uint32_t pack_s8x4(int q0, int q1, int q2, int q3) {
+  return (uint32_t)(q0 & 0xff) | ((uint32_t)(q1 & 0xff) << 8) | ((uint32_t)(q2 & 0xff) << 16) |
+         ((uint32_t)(q3 & 0xff) << 24);
+}
+
+// Largest lane value of a warp, in every lane.
+__device__ __forceinline__ float warp_max(float m) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
+}
 
 }  // namespace agl

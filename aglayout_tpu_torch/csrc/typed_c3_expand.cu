@@ -82,16 +82,6 @@ __host__ __device__ inline size_t smem_bytes(int c2, int s3) {
          (size_t)(2 * NA * KW + 2 * s3) * sizeof(int);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -130,7 +120,7 @@ __device__ void chunk_product(const __nv_bfloat16* zs, const __nv_bfloat16* bs, 
     uint32_t rowaddr[MT];
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt)
-      rowaddr[mt] = smem_u32(zs + zrow(zrow0, mt * 16 + (lane & 15), h) * zs_ + (lane >> 4) * 8);
+      rowaddr[mt] = agl::smem_u32(zs + zrow(zrow0, mt * 16 + (lane & 15), h) * zs_ + (lane >> 4) * 8);
     for (int c0 = 0; c0 < c2; c0 += 16) {
       const int k0 = h * c2 + c0;
       uint32_t b[2][2];
@@ -143,7 +133,7 @@ __device__ void chunk_product(const __nv_bfloat16* zs, const __nv_bfloat16* bs, 
 #pragma unroll
       for (int mt = 0; mt < MT; ++mt) {
         uint32_t a[4];
-        ldmatrix_x4(rowaddr[mt] + c0 * 2, a);
+        agl::ldmatrix_x4(rowaddr[mt] + c0 * 2, a);
         mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
         mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
       }

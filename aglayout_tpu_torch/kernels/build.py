@@ -41,8 +41,13 @@ SIGNATURES = {
     "spade_few_out_conv8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, a_tab, b_tab, out, B, C, H, W, f, cb, is_bf16, stream
     "spade_apply8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "spade_apply_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, is_bf16, stream
     "typed_c3_expand": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, wq, sw, amax, q, out, B, Cin, Cp, Cout, k, gb, is_bf16, stream
+    "conv_small_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, a_tab, b_tab, wq, sw, ymax, out, B, C, H, W, f, cb, is_bf16, stream
+    "spade_c6_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -3,8 +3,11 @@
 Port of `aglayout_tpu/models/convlstm.py`: the `lax.scan` becomes a Python
 loop over the O object slots. All layers advance within one timestep, and
 an invalid slot carries h and c through unchanged, so the final state is
-the reference's state after its last real object. The 5x5 gate conv stays
-`F.conv2d`, as the JAX package leaves it to XLA.
+the reference's state after its last real object. The 5x5 gate conv is
+`F.conv2d`, as the JAX package leaves it to XLA, except under the opt-in
+`int8_serving`, where a wide cell's conv goes through
+`ops/conv8_int8.conv_small_int8` (the CUDA kernel for CUDA tensors with
+`use_int8_kernel`, its plain version otherwise).
 """
 
 from __future__ import annotations
@@ -15,21 +18,55 @@ import torch
 import torch.nn as nn
 
 from aglayout_tpu_torch.models.layers import Conv2d
+from aglayout_tpu_torch.ops.conv8_int8 import conv_small_int8, conv_small_int8_plain
+from aglayout_tpu_torch.ops.int8 import quantize_conv_weights
+
+# the int8 gate conv engages only at or above this cin * cout (JAX
+# `convlstm._INT8_MIN_CINCOUT`): at the published widths only layer 0,
+# 640 -> 512; 192 -> 256 and 128 -> 256 stay dense
+_INT8_MIN_CINCOUT = 512 * 512
 
 
 class ConvLSTMCell(nn.Module):
     """conv(cat(x, h)) -> gates in the reference's order i, f, o, g
-    (models/generator_obj_att.py:99-114)."""
+    (models/generator_obj_att.py:99-114).
+
+    int8_serving: a cell with cin * cout >= _INT8_MIN_CINCOUT runs its conv
+    in int8 (approximate: dynamic activation scales, per-channel weight
+    scales, exact integer sums); the bias is added after the dequantised
+    conv, in its output dtype. Eval only.
+    """
 
     def __init__(self, input_dim: int, hidden_dim: int, kernel_size: int = 5,
+                 int8_serving: bool = False, use_int8_kernel: bool = True,
                  dtype: torch.dtype | None = None):
         super().__init__()
         self.hidden_dim = hidden_dim
+        self.int8_serving = int8_serving
+        self.use_int8_kernel = use_int8_kernel
         self.conv = Conv2d(input_dim + hidden_dim, 4 * hidden_dim, kernel_size,
                            padding=kernel_size // 2, dtype=dtype)
 
-    def forward(self, x, h, c):
-        z = self.conv(torch.cat([x, h], dim=1))
+    @property
+    def int8_engaged(self) -> bool:
+        """Whether this cell's gate conv takes the int8 route."""
+        conv = self.conv
+        return self.int8_serving and conv.in_channels * conv.out_channels >= _INT8_MIN_CINCOUT
+
+    def quantized_weights(self):
+        """(wq, sw) of the gate conv under the int8 route, else None. They do
+        not change over the object slots: `LayoutFuser` takes them once."""
+        return quantize_conv_weights(self.conv.weight) if self.int8_engaged else None
+
+    def forward(self, x, h, c, quantized=None):
+        inp = torch.cat([x, h], dim=1)
+        if self.int8_engaged:
+            wq, sw = quantized or self.quantized_weights()
+            conv = conv_small_int8 if self.use_int8_kernel and inp.is_cuda else conv_small_int8_plain
+            z = conv(inp.contiguous(), wq, sw, k=self.conv.kernel_size[0])
+            z = z + self.conv.bias.to(z.dtype).view(1, -1, 1, 1)
+        else:
+            z = self.conv(inp)
         i, f, o, g = z.split(self.hidden_dim, dim=1)
         c_next = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h_next = torch.sigmoid(o) * torch.tanh(c_next)
@@ -40,13 +77,16 @@ class LayoutFuser(nn.Module):
     """Fuse (B, O, C, H, W) object features into (B, hidden[-1], H, W)."""
 
     def __init__(self, input_dim: int, hidden_dims: Tuple[int, ...] = (128, 64, 64),
-                 kernel_size: int = 5, dtype: torch.dtype | None = None):
+                 kernel_size: int = 5, int8_serving: bool = False, use_int8_kernel: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         self.hidden_dims = tuple(hidden_dims)
         self.compute_dtype = dtype
         ins = (input_dim,) + self.hidden_dims[:-1]
         self.cell_list = nn.ModuleList(
-            ConvLSTMCell(i, hd, kernel_size, dtype=dtype) for i, hd in zip(ins, self.hidden_dims)
+            ConvLSTMCell(i, hd, kernel_size, int8_serving=int8_serving,
+                         use_int8_kernel=use_int8_kernel, dtype=dtype)
+            for i, hd in zip(ins, self.hidden_dims)
         )
 
     def forward(self, x, valid):
@@ -56,12 +96,15 @@ class LayoutFuser(nn.Module):
             (x.new_zeros((b, hd, h, w), dtype=dt), x.new_zeros((b, hd, h, w), dtype=dt))
             for hd in self.hidden_dims
         ]
+        # the int8 weights, once per forward and not per slot (JAX leaves the
+        # hoisting to XLA)
+        quantized = [cell.quantized_weights() for cell in self.cell_list]
         for t in range(o):
             m = valid[:, t].to(dt).view(b, 1, 1, 1)
             inp = x[:, t]
             for li, cell in enumerate(self.cell_list):
                 hp, cp = state[li]
-                h2, c2 = cell(inp, hp, cp)
+                h2, c2 = cell(inp, hp, cp, quantized[li])
                 h2 = m * h2 + (1 - m) * hp
                 c2 = m * c2 + (1 - m) * cp
                 state[li] = (h2, c2)

@@ -194,6 +194,7 @@ class LayoutEncoder(nn.Module):
     def __init__(self, num_classes: int, image_size: int = 64, conv_dim: int = 64,
                  resi_num: int = 6, clstm_dims: Tuple[int, ...] = (128, 64, 64),
                  z_dim: int = 64, use_trunk_kernel: bool = True, use_typed_kernel: bool = True,
+                 int8_serving: bool = False, use_int8_kernel: bool = True,
                  dtype: torch.dtype | None = None):
         super().__init__()
         if image_size not in SIZES:
@@ -213,7 +214,9 @@ class LayoutEncoder(nn.Module):
         self.bn3 = ConditionalBatchNorm(4 * d, num_classes, dtype=dtype)
         self.c4 = Conv2d(4 * d, 8 * d, 4, 2, 1, bias=False, dtype=dtype)
         self.bn4 = ConditionalBatchNorm(8 * d, num_classes, dtype=dtype)
-        self.clstm = LayoutFuser(8 * d, clstm_dims, dtype=dtype)
+        # the int8 switch lives on the cells (`ConvLSTMCell.use_int8_kernel`)
+        self.clstm = LayoutFuser(8 * d, clstm_dims, int8_serving=int8_serving,
+                                 use_int8_kernel=use_int8_kernel, dtype=dtype)
         self.residual = nn.ModuleList(
             ResidualBlock(clstm_dims[-1], dtype=dtype) for _ in range(resi_num)
         )
@@ -470,6 +473,8 @@ class Decoder(nn.Module):
             return h
         # 128: nearest 2x upsample of the 64^2 RGB, then refine
         h = self.c5(F.interpolate(h, scale_factor=2, mode="nearest"))
+        # c6 stays dense under int8_serving, as in JAX: the fused int8 op
+        # (ops/spade_c6_int8.py) stands beside the decoder, not in it
         h = self.c6(self._spade_relu(self.spade_4, h, seg))
         return self._head8(self.spade_5, self.c7, h, seg)
 
@@ -482,7 +487,8 @@ class Generator(nn.Module):
                  clstm_layers: int = 3, resi_num: int = 6, conv_dim: int = 64,
                  use_trunk_kernel: bool = True, use_head_kernel: bool = True,
                  use_typed_kernel: bool = True, use_apply_kernel: bool = True,
-                 use_head8_kernel: bool = True, dtype: torch.dtype | None = None):
+                 use_head8_kernel: bool = True, int8_serving: bool = False,
+                 use_int8_kernel: bool = True, dtype: torch.dtype | None = None):
         super().__init__()
         cd = conv_dim
         self.object_size = object_size
@@ -490,7 +496,8 @@ class Generator(nn.Module):
         self.layout_encoder = LayoutEncoder(
             num_classes, image_size=image_size, conv_dim=cd, resi_num=resi_num,
             clstm_dims=clstm_hidden_dims(clstm_layers, cd), z_dim=z_dim,
-            use_trunk_kernel=use_trunk_kernel, use_typed_kernel=use_typed_kernel, dtype=dtype,
+            use_trunk_kernel=use_trunk_kernel, use_typed_kernel=use_typed_kernel,
+            int8_serving=int8_serving, use_int8_kernel=use_int8_kernel, dtype=dtype,
         )
         self.decoder = Decoder(
             image_size, cd, use_head_kernel=use_head_kernel, use_apply_kernel=use_apply_kernel,
@@ -574,6 +581,8 @@ def build_generator(cfg: Config, device, seed: int | None = None) -> Generator:
         use_typed_kernel=cfg.use_typed_kernel,
         use_apply_kernel=cfg.use_apply_kernel,
         use_head8_kernel=cfg.use_head8_kernel,
+        int8_serving=cfg.int8_serving,
+        use_int8_kernel=cfg.use_int8_kernel,
         dtype=torch.bfloat16 if cfg.bf16 else None,
     )
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)

@@ -19,14 +19,15 @@ Kernels, each beside its plain PyTorch version:
   * `spade_few_out_conv8` (K3, the 128^2 c7 head; compact tables, channel
     tiling): `csrc/spade_few_out_conv8.cu`;
   * `spade_apply8` (K4, SPADE-4 between c5 and c6 at 128^2; compact
-    tables): `csrc/spade_apply.cu`.
-The Pallas kernels' 8-image groups and (H, W, B, C) views are TPU layouts
-and are not carried over: all three take NCHW x.
+    tables) and `spade_apply_t` (K4', the same function from flat tables;
+    like JAX's, an op the decoder does not call): `csrc/spade_apply.cu`.
+The Pallas kernels' 8-image groups, (H, W, B, C) views and (B, C) folds are
+TPU layouts and are not carried over: all four take NCHW x.
 
 Numerics, the same in the kernels and their plain versions:
 y = relu(x * A + B) in f32, rounded once to x's dtype (the Pallas
 `spade_apply8` applies in bf16; the f32 apply is the port's contract for
-all three). The heads zero-pad y (not x), round the weights to x's dtype,
+all four). The heads zero-pad y (not x), round the weights to x's dtype,
 accumulate products and bias in f32 and round the output to x's dtype.
 """
 
@@ -241,3 +242,48 @@ def spade_apply8(x, a_tab, b_tab, f: int):
 
 
 spade_apply8.launches = 0
+
+
+def spade_apply_t_plain(x, a_tab, b_tab, f: int):
+    """Plain PyTorch version of the flat-table SPADE apply.
+
+    x: (B, C, H, W); a_tab, b_tab: flat (B, H/f, 5, C, W) in x's dtype
+    (`SPADE.folded_affine_tables`). Returns relu(x * A + B), (B, C, H, W)
+    in x's dtype.
+    """
+    a, b = expand_tables(a_tab, f).float(), expand_tables(b_tab, f).float()
+    return torch.relu(x.float() * a + b).to(x.dtype)
+
+
+def spade_apply_t(x, a_tab, b_tab, f: int):
+    """relu(x * A + B) from flat SPADE tables; see `spade_apply_t_plain`.
+
+    A CPU tensor takes the plain version. A CUDA tensor launches
+    `csrc/spade_apply.cu` (its flat-table entry point) or raises.
+    """
+    if x.device.type == "cpu":
+        return spade_apply_t_plain(x, a_tab, b_tab, f)
+    if x.device.type != "cuda":
+        raise ValueError(f"spade_apply_t: unsupported device {x.device}")
+    b, c, h, w = x.shape
+    if f < 5 or h % f or w % 8:
+        raise ValueError(f"spade_apply_t: x shape {tuple(x.shape)} with f={f} not supported")
+    _check_common("spade_apply_t", x, a_tab, b_tab, (b, h // f, 5, c, w))
+    if x.data_ptr() % 16:
+        raise ValueError("spade_apply_t: x must be 16-byte aligned (the kernel's vector loads)")
+    # the block's 5 row classes x cb channels x W columns of both tables, as f32
+    cb = next((cb for cb in (16, 8, 4, 2, 1) if c % cb == 0 and 40 * cb * w <= build.SMEM_LIMIT), 0)
+    if not cb:
+        raise ValueError(f"spade_apply_t: W={w} does not fit shared memory")
+    out = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = build.library().spade_apply_t(
+        x.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(), out.data_ptr(), b, c, h, w, f, cb,
+        _DTYPES[x.dtype], stream,
+    )
+    build.check(err, "spade_apply_t")
+    spade_apply_t.launches += 1
+    return out
+
+
+spade_apply_t.launches = 0

@@ -12,11 +12,18 @@ import torch
 
 from aglayout_tpu_torch.config import config_for
 from aglayout_tpu_torch.models import build_generator, init_weights
+from aglayout_tpu_torch.models.convlstm import ConvLSTMCell
 from aglayout_tpu_torch.models.norms import SPADE
+from aglayout_tpu_torch.ops.conv8_int8 import conv_small_int8, conv_small_int8_plain
+from aglayout_tpu_torch.ops.int8 import quantize_conv_weights
 from aglayout_tpu_torch.ops.resblocks import residual_trunk, residual_trunk_plain
+from aglayout_tpu_torch.ops.spade_c6_int8 import spade_c6_int8, spade_c6_int8_plain
 from aglayout_tpu_torch.ops.spade_conv import (
+    compact_to_flat,
     spade_apply8,
     spade_apply8_plain,
+    spade_apply_t,
+    spade_apply_t_plain,
     spade_few_out_conv,
     spade_few_out_conv8,
     spade_few_out_conv8_plain,
@@ -153,3 +160,97 @@ def test_generate_on_card_matches_cpu(cuda, bf16, size):
     # f32: summation order; bf16: the kernels' f32 skip chain against the
     # dense blocks' bf16 one, carried through the decoder
     assert _rel(got, want) < (1e-4 if not bf16 else 5e-2)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_apply_t_kernel_matches_plain(cuda, dt):
+    """K4' at SPADE-4's shape from flat tables, batch cut to 4."""
+    x, a_tab, b_tab, _ = _compact_case(cuda, dt, 4, 128, 128, seed=6)
+    a_flat, b_flat = (compact_to_flat(t, 16).contiguous() for t in (a_tab, b_tab))
+    before = spade_apply_t.launches
+    got = spade_apply_t(x, a_flat, b_flat, 16)
+    assert spade_apply_t.launches == before + 1 and got.dtype == DT[dt]
+    assert _rel(got, spade_apply_t_plain(x, a_flat, b_flat, 16)) < TOL[dt]
+    assert torch.equal(got, spade_apply8(x, a_tab, b_tab, 16))  # K4's function, K4's numerics
+
+
+# b, cin, cout: the wide gate conv (batch cut; 6 is not a multiple of 4
+# images a CTA, and its chunk is 6), and a narrow one with Cin % 32 != 0
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,cin,cout", [(32, 640, 512), (6, 144, 64)])
+def test_conv_small_int8_kernel_matches_plain(cuda, dt, b, cin, cout):
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(b, cin, 8, 8, generator=g).to(cuda, DT[dt])
+    wq, sw = quantize_conv_weights(torch.randn(cout, cin, 5, 5, generator=g).mul(0.02).to(cuda))
+    before = conv_small_int8.launches
+    got = conv_small_int8(x, wq, sw)
+    want = conv_small_int8_plain(x, wq, sw)
+    assert conv_small_int8.launches == before + 1 and got.shape == (b, cout, 8, 8)
+    # exact integer sums and the same f32 products on both sides
+    assert got.dtype == DT[dt] and _rel(got, want) <= 1e-6
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,size,f", [(2, 32, 8), (4, 128, 16)])
+def test_spade_c6_int8_kernel_matches_plain(cuda, dt, b, size, f):
+    """K7 at a small map and at SPADE-4 + c6's shape, batch cut to 4."""
+    g = torch.Generator().manual_seed(8)
+    c, w5 = 128, 5 * size // f
+    x = torch.randn(b, c, size, size, generator=g).to(cuda, DT[dt])
+    a_tab = torch.rand(b, size // f, 5, c, w5, generator=g).add(0.5).to(cuda, DT[dt])
+    b_tab = torch.randn(b, size // f, 5, c, w5, generator=g).mul(0.2).to(cuda, DT[dt])
+    wq, sw = quantize_conv_weights(torch.randn(c, c, 5, 5, generator=g).mul(0.05).to(cuda))
+    before = spade_c6_int8.launches
+    got = spade_c6_int8(x, a_tab, b_tab, wq, sw, f)
+    want = spade_c6_int8_plain(x, a_tab, b_tab, wq, sw, f)
+    assert spade_c6_int8.launches == before + 1 and got.shape == x.shape
+    assert got.dtype == DT[dt] and _rel(got, want) <= 1e-6
+
+
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    """On a CUDA tensor a wrapper launches or raises; it never falls back."""
+    x = torch.zeros(4, 64, 8, 8, device=cuda)
+    wq, sw = quantize_conv_weights(torch.randn(64, 64, 5, 5).to(cuda))
+    launches = (conv_small_int8.launches, spade_c6_int8.launches, spade_apply_t.launches)
+    with pytest.raises(ValueError, match="want \\(B, Cin, 8, 8\\)"):
+        conv_small_int8(torch.zeros(4, 64, 16, 16, device=cuda), wq, sw)
+    with pytest.raises(ValueError, match="int8"):
+        conv_small_int8(x, wq.float(), sw)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        conv_small_int8(x, wq[:32].contiguous(), sw[:32].contiguous())
+    with pytest.raises(ValueError, match="dtype"):
+        conv_small_int8(x.half(), wq, sw)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_small_int8(x.permute(0, 1, 3, 2), wq, sw)
+    y = torch.zeros(1, 128, 32, 32, device=cuda)
+    tab = torch.zeros(1, 4, 5, 128, 20, device=cuda)
+    w6q, sw6 = quantize_conv_weights(torch.randn(128, 128, 5, 5).to(cuda))
+    with pytest.raises(ValueError, match="not supported"):
+        spade_c6_int8(y[:, :64].contiguous(), tab[:, :, :, :64].contiguous(), tab, w6q, sw6, 8)
+    with pytest.raises(ValueError, match="tables"):
+        spade_c6_int8(y, tab[..., :10].contiguous(), tab, w6q, sw6, 8)
+    with pytest.raises(ValueError, match="w6q"):
+        spade_c6_int8(y, tab, tab, w6q[:, :3].contiguous(), sw6, 8)
+    with pytest.raises(ValueError, match="tables"):
+        spade_apply_t(y, tab, tab, 8)  # compact tables where flat ones are due
+    assert launches == (conv_small_int8.launches, spade_c6_int8.launches, spade_apply_t.launches)
+
+
+def test_int8_cell_on_card_matches_cpu(cuda):
+    """The 640 -> 512 cell at the real threshold: K6 on the card against the
+    plain version on the CPU; with the switch off the card runs the plain
+    version and launches nothing."""
+    g = torch.Generator().manual_seed(9)
+    cell = init_weights(ConvLSTMCell(512, 128, int8_serving=True), g).eval()
+    x = torch.randn(4, 512, 8, 8, generator=g)
+    h, c = (torch.randn(4, 128, 8, 8, generator=g).mul(0.5) for _ in range(2))
+    with torch.no_grad():
+        want = torch.cat(cell(x, h, c), 1)
+        cell.to(cuda)
+        before = conv_small_int8.launches
+        got = torch.cat(cell(x.to(cuda), h.to(cuda), c.to(cuda)), 1).cpu()
+        assert conv_small_int8.launches == before + 1
+        cell.use_int8_kernel = False
+        off = torch.cat(cell(x.to(cuda), h.to(cuda), c.to(cuda)), 1).cpu()
+        assert conv_small_int8.launches == before + 1
+    assert _rel(got, want) < 1e-5 and _rel(off, want) < 1e-5

@@ -37,6 +37,24 @@ def test_port_imports_no_jax():
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_port_sources_name_no_jax():
+    """No source of the port, nor the smoke script, names `jax` or the JAX
+    package in an import, wherever in a function it stands."""
+    import re
+
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|aglayout_tpu)(\.|\s|$)", re.M)
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "aglayout_tpu_torch")):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    names = {os.path.relpath(p, REPO) for p in sources}
+    assert {"aglayout_tpu_torch/bench.py", "aglayout_tpu_torch/ops/int8.py",
+            "aglayout_tpu_torch/ops/conv8_int8.py", "aglayout_tpu_torch/ops/spade_c6_int8.py"} <= names
+    for path in sources:
+        with open(path) as fh:
+            found = pattern.search(fh.read())
+        assert found is None, (path, found and found.group(0))
+
+
 def _random_jax_trees(cfg, seed):
     """(params, batch_stats) of a JAX Generator, shapes from an abstract
     init, values from numpy."""

@@ -41,7 +41,9 @@ def layouts(b: int, o: int, z_dim: int = SMALL["z_dim"],
 
 def generator_pair(seed: int = 0, dtype=None, image_size: int = 64, **kw):
     """(JAX Generator, its variables, the port's eval Generator on the CPU),
-    holding the same seeded weights. `dtype` is "bf16" or None."""
+    holding the same seeded weights. `dtype` is "bf16" or None; `kw` goes to
+    both constructors (widths, or `int8_serving=True`: its int8 weights are
+    derived, so the bridge carries no new parameter)."""
     cfg = dict(SMALL, image_size=image_size, object_size=32 if image_size == 64 else 64, **kw)
     tmodel = TorchGenerator(num_classes=NUM_CLASSES,
                             dtype=torch.bfloat16 if dtype == "bf16" else None, **cfg)
