@@ -1,6 +1,7 @@
 """Serving benchmark of the port: generator inference throughput on one GPU.
 
     python -m aglayout_tpu_torch.bench [--int8] [--dense] [--no_<kernel> ...]
+                                       [--typed_c3 v4|v5|v6] [--no_compact_heads]
 
 The serving branch of the JAX package's root `bench.py`: eval-mode
 `Generator.generate` at 128^2, B=128, O=10, bf16 by default, on layouts
@@ -14,13 +15,18 @@ which says nothing about the card.
 
 `--int8` is the opt-in approximate int8 serving configuration
 (`Config.int8_serving`); `--dense` turns every hand-written kernel off, and
-`--no_<kernel>` one of them.
+`--no_<kernel>` one of them. The serving A/B configurations: `--typed_c3`
+picks the typed-c3 kernel (its default is the environment's `AGL_TYPED_C3`
+where that names v5 or v6, as the JAX package reads it, else v4);
+`--no_head8` sends the c7 head through `spade_few_out_conv` on compact
+tables, and with `--no_compact_heads` on flat ones.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
@@ -78,6 +84,12 @@ def parser() -> argparse.ArgumentParser:
                    help="turn every hand-written kernel off (plain PyTorch paths)")
     for name, switch in KERNEL_FLAGS.items():
         p.add_argument(f"--no_{name}", action="store_true", help=f"turn {switch} off")
+    env = os.environ.get("AGL_TYPED_C3", "")
+    p.add_argument("--typed_c3", choices=["v4", "v5", "v6"],
+                   default=env if env in ("v5", "v6") else "v4",
+                   help="the typed-c3 kernel (default: AGL_TYPED_C3 if it is v5 or v6, else v4)")
+    p.add_argument("--no_compact_heads", action="store_true",
+                   help="with --no_head8: the c7 head reads flat tables, not compact ones")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cpu: plain paths on the host, for tests; no device number comes of it")
     return p
@@ -88,7 +100,8 @@ def config_from_args(args, **overrides) -> Config:
     switches = {switch: not (args.dense or getattr(args, f"no_{name}"))
                 for name, switch in KERNEL_FLAGS.items()}
     return config_for(args.image_size, batch_size=args.batch_size, max_objects=args.max_objects,
-                      bf16=not args.f32, int8_serving=args.int8, **switches, **overrides)
+                      bf16=not args.f32, int8_serving=args.int8, typed_c3=args.typed_c3,
+                      use_compact_heads=not args.no_compact_heads, **switches, **overrides)
 
 
 def run(args, **overrides) -> dict:
@@ -135,7 +148,8 @@ def run(args, **overrides) -> dict:
         "ms_per_batch": round(ms, 3),
         "card": card,
         "config": {"batch_size": b, "max_objects": o, "bf16": cfg.bf16,
-                   "int8_serving": cfg.int8_serving,
+                   "int8_serving": cfg.int8_serving, "typed_c3": cfg.typed_c3,
+                   "compact_heads": cfg.use_compact_heads,
                    "kernels_off": sorted(s for s in KERNEL_FLAGS.values() if not getattr(cfg, s))},
     }
 

@@ -6,7 +6,9 @@ TPU knobs are gone; each Hopper kernel on the model's path has one on/off
 switch instead (`use_trunk_kernel`, `use_head_kernel`, `use_typed_kernel`,
 `use_apply_kernel`, `use_head8_kernel`, `use_int8_kernel`), which takes
 effect only for CUDA tensors (on the CPU the model always runs its plain
-PyTorch path). `int8_serving` is the JAX package's opt-in approximate
+PyTorch path). `typed_c3` and `use_compact_heads` choose between kernels of
+one function (the serving A/B configurations of JAX's `AGL_TYPED_C3` and
+`pallas_compact_heads`). `int8_serving` is the JAX package's opt-in approximate
 serving configuration, not a kernel switch: it changes what is computed.
 """
 
@@ -62,9 +64,15 @@ class Config:
     use_trunk_kernel: bool = True  # ops/resblocks.residual_trunk
     use_head_kernel: bool = True  # ops/spade_conv.spade_few_out_conv (c4 head)
     # 128^2 only (JAX: pallas_heads' typed c3, pallas_apply8, pallas_grouped_heads)
-    use_typed_kernel: bool = True  # ops/typed_expand.typed_c3_expand
+    use_typed_kernel: bool = True  # ops/typed_expand.typed_c3_expand, or the variant below
+    # which typed-c3 kernel serves: "v4" (typed_c3_expand), "v5" or "v6"
+    # (ops/typed_expand.VARIANTS; JAX selects them by AGL_TYPED_C3)
+    typed_c3: str = "v4"
     use_apply_kernel: bool = True  # ops/spade_conv.spade_apply8 (SPADE-4)
     use_head8_kernel: bool = True  # ops/spade_conv.spade_few_out_conv8 (c7 head)
+    # with use_head8_kernel off the c7 head goes through spade_few_out_conv:
+    # on compact tables, or on flat ones (JAX: pallas_compact_heads)
+    use_compact_heads: bool = True
     # under int8_serving only
     use_int8_kernel: bool = True  # ops/conv8_int8.conv_small_int8 (ConvLSTM gate conv)
 

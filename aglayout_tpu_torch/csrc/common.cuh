@@ -64,6 +64,17 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&r)[4]) {
                : "r"(addr));
 }
 
+// d += a * b on the bf16 tensor cores: a is 16 x 16 (rows, k contiguous), b is
+// 16 x 8 held k-contiguous per column, d is 16 x 8 f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // d += a * b on the int8 tensor cores: a is 16 x 32 s8 (rows, k contiguous),
 // b is 32 x 8 s8 held k-contiguous per column, d is 16 x 8 s32. Byte for
 // byte the operand layout of the bf16 m16n8k16 product, so ldmatrix feeds it.
@@ -75,6 +86,17 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint
       : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// 16 bytes from global to shared memory without passing through registers;
+// with `valid` false the 16 bytes are zero-filled and src is not read.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+// Waits until at most one committed group of this thread is still in flight.
+__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
 // Four quantised values packed low byte first, as they lie in memory.
 __device__ __forceinline__ uint32_t pack_s8x4(int q0, int q1, int q2, int q3) {

@@ -89,12 +89,6 @@ max_kernel(const T* __restrict__ x, const T* __restrict__ at, const T* __restric
   if ((threadIdx.x & 31) == 0) atomicMax(ymax + b, __float_as_uint(m));
 }
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
-
 __host__ __device__ inline size_t conv_smem_bytes(int C, int elem) {
   const size_t tiles = (size_t)HTH * HTW * (C + 16) + 2 * (size_t)BN * (C + 16);
   const size_t stage = (size_t)BN * (TH * TW + 8) * elem;
@@ -126,12 +120,12 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ at, const T* __restri
   auto load_b = [&](int tap, int buf) {
     for (int i = tid; i < BN * wv; i += THREADS) {
       const int n = i / wv, v = i % wv;
-      cp_async16(agl::smem_u32(bs + ((size_t)buf * BN + n) * str + v * 16),
+      agl::cp_async16(agl::smem_u32(bs + ((size_t)buf * BN + n) * str + v * 16),
                  wq + ((size_t)(n0 + n) * TAPS + tap) * C + v * 16);
     }
   };
   load_b(0, 0);
-  cp_async_commit();
+  agl::cp_async_commit();
 
   // the quantised halo tile: lanes along the tile's pixels, 4 channels a store
   for (int i = tid; i < HTH * HTW * (C / 4); i += THREADS) {
@@ -177,8 +171,8 @@ conv_kernel(const T* __restrict__ x, const T* __restrict__ at, const T* __restri
 
   for (int tap = 0; tap < TAPS; ++tap) {
     if (tap + 1 < TAPS) load_b(tap + 1, (tap + 1) & 1);
-    cp_async_commit();
-    cp_async_wait_1();  // this tap's slice has landed (this thread's part)
+    agl::cp_async_commit();
+    agl::cp_async_wait_1();  // this tap's slice has landed (this thread's part)
     __syncthreads();    // ... and everyone's; at tap 0 the A tile too
     const uint32_t aoff = ((tap / KS) * HTW + tap % KS) * str;
     const uint32_t boff = (tap & 1) * BN * str;

@@ -35,40 +35,17 @@
 // in f32, W3z rounded to the compute dtype; the sum over w in f32, affine
 // and relu in f32, V3 rounded to the compute dtype; the expansion copies.
 
-#include "common.cuh"
+#include "typed_c3.cuh"
 
 namespace {
 
-constexpr int NA = 14;             // window types on the c3 output grid
-constexpr int NZ = 12;             // c2 types per axis
-constexpr int KW = 4;              // c3 kernel size
-constexpr int M = NA * NZ;         // rows (a, l) of W3z
-constexpr int MT = (M + 15) / 16;  // m16 row tiles
-constexpr int ZROW = NZ * NZ;      // index of the zero row of the grid tile
-constexpr int THREADS = 256;
+using namespace typed;
 
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<__nv_bfloat16> {
-  static constexpr int CC = 32;  // output channels per chunk
-};
-template <>
-struct Cfg<float> {
-  static constexpr int CC = 8;
-};
-
-__host__ __device__ constexpr int zstride(int c2) { return c2 + 8; }
-__host__ __device__ inline size_t align16(size_t v) { return (v + 15) / 16 * 16; }
+constexpr int M = NA * NZ;     // rows (a, l) of W3z
+constexpr int ZROW = NZ * NZ;  // index of the zero row of the grid tile
 
 // Shared memory, in bytes: the grid tile; then the chunk's w3 slice, which
 // W3z and V3 overwrite after the product; then the index tables.
-template <typename T>
-__host__ __device__ inline size_t btile_bytes(int c2) {
-  constexpr int N = Cfg<T>::CC * KW;
-  return sizeof(T) == 2 ? (size_t)N * (KW * c2 + 8) * sizeof(T)   // [n][k], k contiguous
-                        : (size_t)KW * c2 * (N + 1) * sizeof(T);  // [k][n]
-}
 template <typename T>
 __host__ __device__ inline size_t big_bytes(int c2) {
   constexpr int N = Cfg<T>::CC * KW;
@@ -80,135 +57,6 @@ template <typename T>
 __host__ __device__ inline size_t smem_bytes(int c2, int s3) {
   return align16((size_t)(ZROW + 1) * zstride(c2) * sizeof(T)) + big_bytes<T>(c2) +
          (size_t)(2 * NA * KW + 2 * s3) * sizeof(int);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Grid row of W3z row m = (a, l) at kernel row h: the gathered c2 row, or
-// the zero row (idxR == 12, or m past the M real rows).
-__device__ __forceinline__ int zrow(const int* zrow0, int m, int h) {
-  if (m >= M) return ZROW;
-  const int r0 = zrow0[(m / NZ) * KW + h];
-  return r0 < 0 ? ZROW : r0 + m % NZ;
-}
-
-// W3z of one chunk into ws ([M][N], rounded to T), bf16 on the tensor
-// cores. bs: [N][KW * c2 + 8], n = ci * KW + w.
-__device__ void chunk_product(const __nv_bfloat16* zs, const __nv_bfloat16* bs, __nv_bfloat16* ws,
-                              const int* zrow0, int c2) {
-  constexpr int N = Cfg<__nv_bfloat16>::CC * KW;  // 128: 8 warps x 16 columns
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, n0 = warp * 16;
-  const int K = KW * c2, bstride = K + 8, zs_ = zstride(c2);
-  float acc[MT][2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-  for (int h = 0; h < KW; ++h) {
-    // ldmatrix x4: lane supplies row (lane % 16) of the tile, k offset 8 * (lane / 16)
-    uint32_t rowaddr[MT];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      rowaddr[mt] = agl::smem_u32(zs + zrow(zrow0, mt * 16 + (lane & 15), h) * zs_ + (lane >> 4) * 8);
-    for (int c0 = 0; c0 < c2; c0 += 16) {
-      const int k0 = h * c2 + c0;
-      uint32_t b[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const __nv_bfloat16* bp = bs + (size_t)(n0 + j * 8 + g) * bstride + k0 + 2 * t;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(bp);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(bp + 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a[4];
-        agl::ldmatrix_x4(rowaddr[mt] + c0 * 2, a);
-        mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
-        mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with bs, which ws overwrites
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = mt * 16 + g + 8 * half, n = n0 + j * 8 + 2 * t;
-        if (m < M) {
-          ws[m * N + n] = __float2bfloat16_rn(acc[mt][j][2 * half]);
-          ws[m * N + n + 1] = __float2bfloat16_rn(acc[mt][j][2 * half + 1]);
-        }
-      }
-}
-
-// The same in f32 on the FMAs. bs: [KW * c2][N + 1].
-__device__ void chunk_product(const float* zs, const float* bs, float* ws, const int* zrow0,
-                              int c2) {
-  constexpr int N = Cfg<float>::CC * KW;  // 32: 8 threads x 4 columns
-  constexpr int MI = (M + 31) / 32;       // rows per thread, strided by 32
-  const int n4 = threadIdx.x % 8, mrow = threadIdx.x / 8, zs_ = zstride(c2);
-  float acc[MI][4];
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  for (int h = 0; h < KW; ++h) {
-    const float* zp[MI];
-#pragma unroll
-    for (int i = 0; i < MI; ++i) zp[i] = zs + zrow(zrow0, mrow + 32 * i, h) * zs_;
-    for (int c = 0; c < c2; ++c) {
-      const float* bp = bs + (size_t)(h * c2 + c) * (N + 1) + 4 * n4;
-      const float bv[4] = {bp[0], bp[1], bp[2], bp[3]};
-#pragma unroll
-      for (int i = 0; i < MI; ++i) {
-        const float av = zp[i][c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av, bv[j], acc[i][j]);
-      }
-    }
-  }
-  __syncthreads();  // every thread is done with bs, which ws overwrites
-#pragma unroll
-  for (int i = 0; i < MI; ++i) {
-    const int m = mrow + 32 * i;
-    if (m < M)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ws[m * N + 4 * n4 + j] = acc[i][j];
-  }
-}
-
-// The chunk's w3 slice: channels [c0, c0 + CC) of wk ((c4, KW, KW * c2),
-// rows (C, w)), into the layout chunk_product reads.
-__device__ void load_w3(const __nv_bfloat16* wk, __nv_bfloat16* bs, int c0, int c2) {
-  constexpr int N = Cfg<__nv_bfloat16>::CC * KW;
-  const int K = KW * c2, kv = K / 8;
-  const uint4* src = reinterpret_cast<const uint4*>(wk + (size_t)c0 * KW * K);
-  for (int i = threadIdx.x; i < N * kv; i += THREADS) {
-    const int n = i / kv, k8 = i % kv;
-    *reinterpret_cast<uint4*>(bs + (size_t)n * (K + 8) + k8 * 8) = src[i];
-  }
-}
-__device__ void load_w3(const float* wk, float* bs, int c0, int c2) {
-  constexpr int N = Cfg<float>::CC * KW;
-  const int K = KW * c2;
-  const float* src = wk + (size_t)c0 * KW * K;
-  for (int i = threadIdx.x; i < N * K; i += THREADS) {
-    const int k = i / N, n = i % N;  // neighbouring threads: neighbouring columns
-    bs[(size_t)k * (N + 1) + n] = src[(size_t)n * K + k];
-  }
 }
 
 // z2: (n, 12, 12, c2) T; idxR, lsel: (n, 14, 4) i32; selR, selC: (n, s3)
@@ -242,50 +90,20 @@ typed_c3_expand_kernel(const T* __restrict__ z2, const int* __restrict__ idxR,
     sr[i] = selR[obj * s3 + i];
     sc[i] = selC[obj * s3 + i];
   }
-  using V = agl::Vec16<T>;
-  const int cv = c2 / V::N;
-  const uint4* zsrc = reinterpret_cast<const uint4*>(z2 + (size_t)obj * ZROW * c2);
-  for (int i = tid; i < ZROW * cv; i += THREADS)
-    *reinterpret_cast<uint4*>(zs + (i / cv) * zstride(c2) + (i % cv) * V::N) = zsrc[i];
+  load_grid(z2 + (size_t)obj * ZROW * c2, zs, ZROW, c2);
   for (int i = tid; i < c2; i += THREADS) zs[ZROW * zstride(c2) + i] = agl::from_f<T>(0.f);
 
   const float* a3 = ab + (size_t)obj * 2 * c4;
   const float* b3 = a3 + c4;
-  const int xv = s3 / V::N;
   for (int c0 = 0; c0 < c4; c0 += CC) {
     __syncthreads();  // the tables and zs are in; the previous chunk is written out
-    load_w3(wk, bs, c0, c2);
+    load_w3<CC>(wk, bs, c0, c2);
     __syncthreads();
-    chunk_product(zs, bs, ws, zrow0, c2);
+    chunk_product<NZ>(zs, bs, ws, zrow0, c2, ZROW);
     __syncthreads();
-
-    // V3 of the chunk: the sum over w of the column windows, affine, relu
-    for (int i = tid; i < CC * NA * NA; i += THREADS) {
-      const int ci = i / (NA * NA), a = (i / NA) % NA, bcol = i % NA;
-      float s = 0.f;
-#pragma unroll
-      for (int w = 0; w < KW; ++w) {
-        const int l = lsl[bcol * KW + w];
-        if (l >= 0 && l < NZ) s += agl::to_f(ws[(a * NZ + l) * N + ci * KW + w]);
-      }
-      v3[i] = agl::from_f<T>(fmaxf(s * a3[c0 + ci] + b3[c0 + ci], 0.f));
-    }
+    v3_from_w3z<T, NZ>(ws, lsl, a3 + c0, b3 + c0, v3, CC);
     __syncthreads();
-
-    // expansion: out[c0 + ci, y, x] = V3[selR[y], selC[x]], 16 bytes a store
-    for (int i = tid; i < CC * s3 * xv; i += THREADS) {
-      const int x8 = i % xv, y = (i / xv) % s3, ci = i / (xv * s3);
-      const int a = sr[y];
-      V v;
-#pragma unroll
-      for (int e = 0; e < V::N; ++e) {
-        const int bcol = sc[x8 * V::N + e];
-        v.v()[e] = (a >= 0 && a < NA && bcol >= 0 && bcol < NA) ? v3[(ci * NA + a) * NA + bcol]
-                                                                 : agl::from_f<T>(0.f);
-      }
-      *reinterpret_cast<uint4*>(out + (((size_t)obj * c4 + c0 + ci) * s3 + y) * s3 + x8 * V::N) =
-          v.raw;
-    }
+    expand_store(v3, sr, sc, out + ((size_t)obj * c4 + c0) * s3 * s3, CC, s3);
   }
 }
 

@@ -35,8 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # h, w1, w2, ab1, ab2, out, B, C, R, is_bf16, stream
     "residual_trunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, a_tab, b_tab, w, bias, out, B, C, H, W, K, O, f, rows, is_bf16, stream
-    "spade_few_out_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, a_tab, b_tab, w, bias, out, B, C, H, W, K, O, f, rows, cc, mode, is_bf16, stream
+    "spade_few_out_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, a_tab, b_tab, w, bias, out, B, C, H, W, K, O, f, cc, is_bf16, stream
     "spade_few_out_conv8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, a_tab, b_tab, out, B, C, H, W, f, cb, is_bf16, stream
@@ -44,6 +44,11 @@ SIGNATURES = {
     "spade_apply_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, is_bf16, stream
     "typed_c3_expand": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "typed_c3_expand_v6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # z2p, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, group, is_bf16, stream
+    "typed_c3_expand_v3": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # z2, idxR, lsel, selR, selC, ab, wk, w3z, out, n, c2, c4, s3, is_bf16, stream
+    "typed_c3_expand_v5": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, wq, sw, amax, q, out, B, Cin, Cp, Cout, k, gb, is_bf16, stream
     "conv_small_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, a_tab, b_tab, wq, sw, ymax, out, B, C, H, W, f, cb, is_bf16, stream

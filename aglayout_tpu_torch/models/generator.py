@@ -35,7 +35,7 @@ from aglayout_tpu_torch.models.norms import SPADE, ConditionalBatchNorm, MaskedB
 from aglayout_tpu_torch.ops.resblocks import residual_trunk
 from aglayout_tpu_torch.ops.spade_conv import spade_apply8, spade_few_out_conv, spade_few_out_conv8
 from aglayout_tpu_torch.ops.typed_expand import (
-    typed_c3_expand,
+    VARIANTS,
     typed_c3_expand_plain,
     typed_c3_inputs_from_windows,
 )
@@ -194,16 +194,19 @@ class LayoutEncoder(nn.Module):
     def __init__(self, num_classes: int, image_size: int = 64, conv_dim: int = 64,
                  resi_num: int = 6, clstm_dims: Tuple[int, ...] = (128, 64, 64),
                  z_dim: int = 64, use_trunk_kernel: bool = True, use_typed_kernel: bool = True,
-                 int8_serving: bool = False, use_int8_kernel: bool = True,
+                 typed_c3: str = "v4", int8_serving: bool = False, use_int8_kernel: bool = True,
                  dtype: torch.dtype | None = None):
         super().__init__()
         if image_size not in SIZES:
             raise ValueError(f"image_size {image_size} not in {SIZES}")
+        if typed_c3 not in VARIANTS:
+            raise ValueError(f"typed_c3 {typed_c3!r} not in {sorted(VARIANTS)}")
         d = conv_dim
         self.image_size = image_size
         self.conv_dim = d
         self.use_trunk_kernel = use_trunk_kernel
         self.use_typed_kernel = use_typed_kernel
+        self.typed_c3 = typed_c3
         self.compute_dtype = dtype
         # the reference's c0 is a 1x1 conv with padding=1 (grows the map by 2)
         self.c0 = Conv2d(d + z_dim, d, 1, padding=1, bias=False, dtype=dtype)
@@ -291,8 +294,10 @@ class LayoutEncoder(nn.Module):
         patterns and likewise every column: the c2 map is
         z2[row_type, col_type, :] on a 12 x 12 type grid. The 4-row windows
         of c3 are typed again (14 types per axis), and
-        `ops/typed_expand.typed_c3_expand` computes c3, bn3 and relu on the
-        types and expands them. Returns (B*O, 4d, S3, S3).
+        the kernel `typed_c3` names (`ops/typed_expand.VARIANTS`: v4 is
+        `typed_c3_expand`, v5 and v6 two other schedules of its function)
+        computes c3, bn3 and relu on the types and expands them. Returns
+        (B*O, 4d, S3, S3).
         """
         b, o, _ = vec.shape
         d, size = self.conv_dim, self.image_size
@@ -337,7 +342,8 @@ class LayoutEncoder(nn.Module):
         )
         a3, b3 = self.bn3.eval_affine(objs_f)
         ab = torch.stack([a3, b3], 1).float()  # (n, 2, 4d)
-        expand = typed_c3_expand if self.use_typed_kernel and vec.is_cuda else typed_c3_expand_plain
+        on_card = self.use_typed_kernel and vec.is_cuda
+        expand = VARIANTS[self.typed_c3] if on_card else typed_c3_expand_plain
         return expand(z2.reshape(n, 12, 12, 2 * d).contiguous(), *inputs, ab, self.c3.weight)
 
     def _c4_fold(self, h, objs_f):
@@ -392,7 +398,8 @@ class Decoder(nn.Module):
 
     def __init__(self, image_size: int = 64, conv_dim: int = 64,
                  use_head_kernel: bool = True, use_apply_kernel: bool = True,
-                 use_head8_kernel: bool = True, dtype: torch.dtype | None = None):
+                 use_head8_kernel: bool = True, use_compact_heads: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         if image_size not in SIZES:
             raise ValueError(f"image_size {image_size} not in {SIZES}")
@@ -401,6 +408,7 @@ class Decoder(nn.Module):
         self.use_head_kernel = use_head_kernel
         self.use_apply_kernel = use_apply_kernel
         self.use_head8_kernel = use_head8_kernel
+        self.use_compact_heads = use_compact_heads
         spade_kw = dict(seg_features=d, nhidden=2 * d, dtype=dtype)
         self.c0_new = Conv2d(3 * d, 4 * d, 3, padding=1, bias=False, dtype=dtype)
         self.spade_0 = SPADE(4 * d, **spade_kw)
@@ -425,23 +433,27 @@ class Decoder(nn.Module):
         f = h.shape[-1] // seg.shape[-1]
         return f if f >= 5 and h.shape[-2:] == (f * seg.shape[-2], f * seg.shape[-1]) else 0
 
-    def _head(self, spade, conv, h, seg):
-        """The c4 head, conv(relu(SPADE(h, seg))): K2 on flat tables for CUDA
-        tensors, the dense composition otherwise."""
+    def _head(self, spade, conv, h, seg, compact: bool = False):
+        """conv(relu(SPADE(h, seg))): K2 for CUDA tensors, on flat tables (the
+        c4 head) or on compact ones, the dense composition otherwise."""
         f = self._factor(h, seg)
         if self.use_head_kernel and h.is_cuda and f:
-            a_tab, b_tab = spade.folded_affine_tables(seg, f)
+            a_tab, b_tab = (spade.folded_affine_tables_compact(seg) if compact
+                            else spade.folded_affine_tables(seg, f))
             return spade_few_out_conv(
                 h.contiguous(), a_tab.to(h.dtype).contiguous(), b_tab.to(h.dtype).contiguous(),
-                conv.weight, conv.bias, f,
+                conv.weight, conv.bias, f, compact=compact,
             )
         return conv(torch.relu(spade(h, seg)))
 
     def _head8(self, spade, conv, h, seg):
-        """The c7 head at 128^2: K3 on compact tables for CUDA tensors, the
-        dense composition otherwise. (JAX routes each head by its TPU
-        tiling gate, C % 128 == 0, which at the published widths sends c4
-        to K2 and c7 to K3; the port routes by head, at any width.)"""
+        """The c7 head at 128^2, routed as JAX's `Decoder._head` routes it:
+        K3 on compact tables with `use_head8_kernel` (JAX
+        `pallas_grouped_heads`); else K2 with `use_head_kernel`, on compact
+        tables with `use_compact_heads` (JAX `pallas_compact_heads`), on flat
+        ones without; else the dense composition. (JAX gates each route by
+        its TPU tiling, C % 128 == 0, which at the published widths sends c4
+        to K2 flat and c7 to K3; the port routes by head, at any width.)"""
         f = self._factor(h, seg)
         if self.use_head8_kernel and h.is_cuda and f:
             a_tab, b_tab = spade.folded_affine_tables_compact(seg)
@@ -449,7 +461,7 @@ class Decoder(nn.Module):
                 h.contiguous(), a_tab.to(h.dtype).contiguous(), b_tab.to(h.dtype).contiguous(),
                 conv.weight, conv.bias, f,
             )
-        return conv(torch.relu(spade(h, seg)))
+        return self._head(spade, conv, h, seg, compact=self.use_compact_heads)
 
     def _spade_relu(self, spade, h, seg):
         """relu(SPADE(h, seg)): K4 on compact tables for CUDA tensors, the
@@ -488,7 +500,8 @@ class Generator(nn.Module):
                  use_trunk_kernel: bool = True, use_head_kernel: bool = True,
                  use_typed_kernel: bool = True, use_apply_kernel: bool = True,
                  use_head8_kernel: bool = True, int8_serving: bool = False,
-                 use_int8_kernel: bool = True, dtype: torch.dtype | None = None):
+                 use_int8_kernel: bool = True, typed_c3: str = "v4",
+                 use_compact_heads: bool = True, dtype: torch.dtype | None = None):
         super().__init__()
         cd = conv_dim
         self.object_size = object_size
@@ -497,11 +510,12 @@ class Generator(nn.Module):
             num_classes, image_size=image_size, conv_dim=cd, resi_num=resi_num,
             clstm_dims=clstm_hidden_dims(clstm_layers, cd), z_dim=z_dim,
             use_trunk_kernel=use_trunk_kernel, use_typed_kernel=use_typed_kernel,
-            int8_serving=int8_serving, use_int8_kernel=use_int8_kernel, dtype=dtype,
+            typed_c3=typed_c3, int8_serving=int8_serving, use_int8_kernel=use_int8_kernel,
+            dtype=dtype,
         )
         self.decoder = Decoder(
             image_size, cd, use_head_kernel=use_head_kernel, use_apply_kernel=use_apply_kernel,
-            use_head8_kernel=use_head8_kernel, dtype=dtype,
+            use_head8_kernel=use_head8_kernel, use_compact_heads=use_compact_heads, dtype=dtype,
         )
         self.global_encoder = GlobalEncoder(cd, 2 * cd, dtype=dtype)
         self.attribute_encoder = AttributeEncoder(
@@ -583,6 +597,8 @@ def build_generator(cfg: Config, device, seed: int | None = None) -> Generator:
         use_head8_kernel=cfg.use_head8_kernel,
         int8_serving=cfg.int8_serving,
         use_int8_kernel=cfg.use_int8_kernel,
+        typed_c3=cfg.typed_c3,
+        use_compact_heads=cfg.use_compact_heads,
         dtype=torch.bfloat16 if cfg.bf16 else None,
     )
     gen = torch.Generator().manual_seed(cfg.seed if seed is None else seed)

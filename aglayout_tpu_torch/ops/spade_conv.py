@@ -14,15 +14,18 @@ gamma and beta never exist. Two table layouts, both from `models/norms.py`:
     table with its columns expanded to full resolution (`compact_to_flat`).
 
 Kernels, each beside its plain PyTorch version:
-  * `spade_few_out_conv` (K2, the 64^2 c4 head; flat tables):
-    `csrc/spade_few_out_conv.cu`;
-  * `spade_few_out_conv8` (K3, the 128^2 c7 head; compact tables, channel
-    tiling): `csrc/spade_few_out_conv8.cu`;
+  * `spade_few_out_conv` (K2, the c4 head on flat tables; with
+    `compact=True` the 128^2 c7 head when K3 is switched off; with
+    `transposed=True` an x laid out (H, W, B, C), an op no model path
+    calls, as in JAX): `csrc/spade_few_out_conv.cu`;
+  * `spade_few_out_conv8` (K3, the 128^2 c7 head; compact tables):
+    `csrc/spade_few_out_conv8.cu`;
   * `spade_apply8` (K4, SPADE-4 between c5 and c6 at 128^2; compact
     tables) and `spade_apply_t` (K4', the same function from flat tables;
     like JAX's, an op the decoder does not call): `csrc/spade_apply.cu`.
 The Pallas kernels' 8-image groups, (H, W, B, C) views and (B, C) folds are
-TPU layouts and are not carried over: all four take NCHW x.
+TPU layouts and are not carried over: all take NCHW x, but for K2's
+`transposed` mode, whose (H, W, B, C) input is the mode's point.
 
 Numerics, the same in the kernels and their plain versions:
 y = relu(x * A + B) in f32, rounded once to x's dtype (the Pallas
@@ -93,13 +96,26 @@ def _padded_weights(weight, bias, dtype):
     return wk, bk
 
 
-def spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f: int):
+def _modes(name, compact: bool, transposed: bool) -> str:
+    if compact and transposed:
+        raise ValueError(f"{name}: compact tables with a transposed x are not supported")
+    return "compact" if compact else "transposed" if transposed else "flat"
+
+
+def spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f: int, compact: bool = False,
+                             transposed: bool = False):
     """Plain PyTorch version of the kernel.
 
-    x: (B, C, H, W); a_tab, b_tab: (B, H/f, 5, C, W) in x's dtype;
-    weight: (O, C, K, K) torch conv weight; bias: (O,) or None.
+    x: (B, C, H, W), or (H, W, B, C) with `transposed`; a_tab, b_tab in x's
+    dtype: flat (B, H/f, 5, C, W), or compact (B, H/f, 5, C, 5 W/f) with
+    `compact`; weight: (O, C, K, K) torch conv weight; bias: (O,) or None.
     Returns (B, O, H, W) in x's dtype.
     """
+    mode = _modes("spade_few_out_conv_plain", compact, transposed)
+    if mode == "transposed":
+        x = x.permute(2, 3, 0, 1)
+    elif mode == "compact":
+        a_tab, b_tab = compact_to_flat(a_tab, f), compact_to_flat(b_tab, f)
     y = torch.relu(x.float() * expand_tables(a_tab, f).float() + expand_tables(b_tab, f).float())
     w = weight.to(x.dtype).float()
     out = F.conv2d(y.to(x.dtype).float(), w, None if bias is None else bias.float(),
@@ -107,54 +123,73 @@ def spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f: int):
     return out.to(x.dtype)
 
 
-def _pick_rows(c: int, h: int, w: int, k: int, itemsize: int):
-    """Largest output-row tile whose shared memory fits one block."""
-    for rows in (8, 4, 2, 1):
-        smem = c * k * k * 4 * 4 + c * (rows + k - 1) * (w + k - 1) * itemsize
-        if h % rows == 0 and smem <= build.SMEM_LIMIT:
-            return rows, smem
-    raise ValueError(f"spade_few_out_conv: C={c}, W={w}, K={k} does not fit shared memory")
+def _pick_tile(c: int, h: int, w: int, k: int, itemsize: int, vec: int = 1):
+    """(rows, cc) of `csrc/spade_few_out_conv.cu`: the tallest output-row
+    tile with rows * W <= 512 (two pixels a thread), and the widest channel
+    chunk, a multiple of `vec`, whose shared memory fits one block."""
+    rows = max((r for r in range(1, h + 1) if h % r == 0 and r * w <= 512), default=0)
+    for cc in (16, 8, 4, 2, 1):
+        smem = (w + 3) // 4 * 16 + cc * k * k * 16 + cc * (rows + k - 1) * (w + k - 1) * itemsize
+        if rows and c % cc == 0 and cc % vec == 0 and smem <= build.SMEM_LIMIT:
+            return rows, cc
+    raise ValueError(f"spade_few_out_conv: C={c}, W={w}, K={k} not supported")
 
 
-def spade_few_out_conv(x, a_tab, b_tab, weight, bias, f: int):
-    """relu(x * A + B) convolved with a KxK, O <= 4 output-channel kernel.
+_MODES = {"flat": 0, "compact": 1, "transposed": 2}  # the kernel's mode argument
+
+
+def spade_few_out_conv(x, a_tab, b_tab, weight, bias, f: int, compact: bool = False,
+                       transposed: bool = False):
+    """relu(x * A + B) convolved with a KxK, O <= 4 output-channel kernel,
+    from flat tables, from compact ones (`compact`), or on an x laid out
+    (H, W, B, C) (`transposed`, flat tables). The channels are tiled, so any
+    C fits, the c7 head's 128 at W = 128 included.
 
     Same contract as `spade_few_out_conv_plain`. A CPU tensor takes the
     plain version. A CUDA tensor launches `csrc/spade_few_out_conv.cu` or
-    raises.
+    raises; `launches` counts every launch, `mode_launches` by mode.
     """
     if x.device.type == "cpu":
-        return spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f)
+        return spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f, compact, transposed)
     if x.device.type != "cuda":
         raise ValueError(f"spade_few_out_conv: unsupported device {x.device}")
-    b, c, h, w = x.shape
+    mode = _modes("spade_few_out_conv", compact, transposed)
+    h, w, b, c = x.shape if transposed else (*x.shape[2:], *x.shape[:2])
     o, _, k, _ = weight.shape
     if weight.shape != (o, c, k, k) or k not in (3, 5, 7) or not 1 <= o <= 4:
         raise ValueError(f"spade_few_out_conv: weight shape {tuple(weight.shape)} not supported")
-    if h % f or w % 2 or f < 5:
+    if h % f or w % 2 or f < 5 or (compact and w % f):
         raise ValueError(f"spade_few_out_conv: x shape {tuple(x.shape)} with f={f} not supported")
-    _check_common("spade_few_out_conv", x, a_tab, b_tab, (b, h // f, 5, c, w), (weight, bias))
-    rows, _ = _pick_rows(c, h, w, k, x.element_size())
+    _check_common("spade_few_out_conv", x, a_tab, b_tab,
+                  (b, h // f, 5, c, w // f * 5 if compact else w), (weight, bias))
+    # the transposed loads are 16-byte vectors along C: nothing of the Pallas
+    # kernel's C % 128 lane fold is needed beyond that
+    vec = 16 // x.element_size() if transposed else 1
+    if transposed and (c % vec or x.data_ptr() % 16):
+        raise ValueError(f"spade_few_out_conv: a transposed x needs C % {vec} == 0 and 16-byte "
+                         "alignment (the kernel's vector loads)")
+    rows, cc = _pick_tile(c, h, w, k, x.element_size(), vec)
     wk, bk = _padded_weights(weight, bias, x.dtype)
     out = torch.empty((b, o, h, w), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = build.library().spade_few_out_conv(
         x.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-        out.data_ptr(), b, c, h, w, k, o, f, rows, _DTYPES[x.dtype], stream,
+        out.data_ptr(), b, c, h, w, k, o, f, rows, cc, _MODES[mode], _DTYPES[x.dtype], stream,
     )
     build.check(err, "spade_few_out_conv")
     spade_few_out_conv.launches += 1
+    spade_few_out_conv.mode_launches[mode] += 1
     return out
 
 
 spade_few_out_conv.launches = 0
+spade_few_out_conv.mode_launches = dict.fromkeys(_MODES, 0)
 
 
 def spade_few_out_conv8_plain(x, a_tab, b_tab, weight, bias, f: int):
     """Plain PyTorch version of the c7-head kernel: `spade_few_out_conv_plain`
-    on the compact tables (B, H/f, 5, C, 5 W/f), expanded."""
-    return spade_few_out_conv_plain(x, compact_to_flat(a_tab, f), compact_to_flat(b_tab, f),
-                                    weight, bias, f)
+    on the compact tables (B, H/f, 5, C, 5 W/f)."""
+    return spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f, compact=True)
 
 
 def _channel_chunk(c: int) -> int:
@@ -164,8 +199,8 @@ def _channel_chunk(c: int) -> int:
 
 def spade_few_out_conv8(x, a_tab, b_tab, weight, bias, f: int):
     """relu(x * A + B) convolved with a KxK, O <= 4 output-channel kernel,
-    from compact tables; the channel-tiled head for wide inputs (the c7
-    head at 128^2: C=128, W=128, which K2's kernel cannot hold).
+    from compact tables; the default c7 head at 128^2 (four pixels a
+    thread, 1024 / W rows a block).
 
     Same contract as `spade_few_out_conv8_plain`. A CPU tensor takes the
     plain version. A CUDA tensor launches `csrc/spade_few_out_conv8.cu` or

@@ -22,17 +22,25 @@ raises, and the run then exits non-zero without printing a result:
      non-int8 image of phase 4, with the limit stated; timed against the
      non-int8 model in turns; then one run of the serving bench itself
      (`aglayout_tpu_torch.bench.run`) in each configuration;
-  6. kernels: each of the eight hand-written kernels against its plain
+  6. generate 128^2, the serving A/B configurations: `typed_c3` v5 and v6
+     (the chosen typed kernel must launch exactly once and v4 not at all),
+     `use_head8_kernel` off (K2 must launch twice, on flat tables for c4
+     and on compact ones for c7, and K3 not at all), and that with
+     `use_compact_heads` off (K2 twice on flat tables); each image against
+     the default configuration's, each timed in turns with it;
+  7. kernels: each of the thirteen hand-written kernels against its plain
      PyTorch version, at the shapes generate gives it with B=128 (K7 and
-     K4', which the decoder does not call, at SPADE-4's shape), in bf16 and
-     in f32 (TF32 off), with the tolerance stated beside each; K6 and K7
-     must equal their plain versions to 1e-6 in f32, their integer sums
-     being exact; timed with CUDA events, beside the bound computed from
-     the shapes;
-  7. reference: small f32 generators (64^2, 128^2, and 128^2 with
-     `int8_serving` at a lowered threshold) on the card, kernels on,
-     against the same models on the CPU, where they run their plain paths;
-     and the 640 -> 512 ConvLSTM cell alone at the real int8 threshold.
+     K4', which the decoder does not call, at SPADE-4's shape; K2's
+     transposed mode and the typed v3, which no model path calls, at the
+     c7 head's and K5's), in bf16 and in f32 (TF32 off), with the tolerance
+     stated beside each; K6 and K7 must equal their plain versions to 1e-6
+     in f32, their integer sums being exact; timed with CUDA events, beside
+     the bound computed from the shapes and, for v6, from the data;
+  8. reference: small f32 generators (64^2, 128^2, 128^2 with
+     `int8_serving` at a lowered threshold, and 128^2 in each A/B
+     configuration) on the card, kernels on, against the same models on the
+     CPU, where they run their plain paths; and the 640 -> 512 ConvLSTM
+     cell alone at the real int8 threshold.
 The last three lines are the kernel summary (JSON), the card's name and
 power limit, and the result (JSON).
 """
@@ -48,7 +56,7 @@ import time
 import numpy as np
 import torch
 
-B, O = 128, 10  # serving batch and object slots (bench.py's)
+B, O = 128, 10  # serving batch and object slots (the serving bench's)
 HBM, BF16, INT8, F32 = 3.35e12, 989e12, 1979e12, 67e12  # H100 SXM peaks: bytes/s, operations/s
 # kernel name -> (source, the TPU kernel it replaces)
 SOURCES = {
@@ -68,12 +76,36 @@ SOURCES = {
                       "aglayout_tpu/ops/pallas_spade_c6_int8.py:113"),
     "spade_apply_t": ("aglayout_tpu_torch/csrc/spade_apply.cu",
                       "aglayout_tpu/ops/pallas_spade_conv.py:613"),
+    "typed_c3_expand_v3": ("aglayout_tpu_torch/csrc/typed_c3_expand_v3.cu",
+                           "aglayout_tpu/ops/pallas_typed_expand.py:148"),
+    "typed_c3_expand_v5": ("aglayout_tpu_torch/csrc/typed_c3_expand_v5.cu",
+                           "aglayout_tpu/ops/pallas_typed_expand.py:520"),
+    "typed_c3_expand_v6": ("aglayout_tpu_torch/csrc/typed_c3_expand_v6.cu",
+                           "aglayout_tpu/ops/pallas_typed_expand.py:680"),
+    # the compact=True and transposed=True modes of spade_few_out_conv
+    "spade_few_out_conv[compact]": ("aglayout_tpu_torch/csrc/spade_few_out_conv.cu",
+                                    "aglayout_tpu/ops/pallas_spade_conv.py:143"),
+    "spade_few_out_conv[transposed]": ("aglayout_tpu_torch/csrc/spade_few_out_conv.cu",
+                                       "aglayout_tpu/ops/pallas_spade_conv.py:143"),
 }
-PATH64 = ("residual_trunk", "spade_few_out_conv")
-PATH128 = PATH64 + ("spade_few_out_conv8", "spade_apply8", "typed_c3_expand")
+K2, K2C, K2T = "spade_few_out_conv", "spade_few_out_conv[compact]", "spade_few_out_conv[transposed]"
+# launches per batch of each path; every kernel not named must not launch
+PATH64 = {"residual_trunk": 1, K2: 1}
+PATH128 = dict(PATH64, spade_few_out_conv8=1, spade_apply8=1, typed_c3_expand=1)
+PATH128_INT8 = dict(PATH128, conv_small_int8=O)  # one wide ConvLSTM layer (640 -> 512) x O slots
+# the serving A/B configurations: label, Config fields, launches per batch, and
+# the kernel whose reported launch count comes from this configuration
+VARIANTS = (
+    ("typed v5", {"typed_c3": "v5"}, dict(PATH128, typed_c3_expand=0, typed_c3_expand_v5=1),
+     "typed_c3_expand_v5"),
+    ("typed v6", {"typed_c3": "v6"}, dict(PATH128, typed_c3_expand=0, typed_c3_expand_v6=1),
+     "typed_c3_expand_v6"),
+    ("head8 off", {"use_head8_kernel": False}, {**PATH128, "spade_few_out_conv8": 0, K2C: 1}, K2C),
+    ("head8 off, flat", {"use_head8_kernel": False, "use_compact_heads": False},
+     {**PATH128, "spade_few_out_conv8": 0, K2: 2}, None),
+)
 SWITCHES = ("use_trunk_kernel", "use_head_kernel", "use_typed_kernel", "use_apply_kernel",
             "use_head8_kernel", "use_int8_kernel")
-
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -105,17 +137,18 @@ def set_tf32(on: bool) -> None:
     torch.backends.cudnn.allow_tf32 = on
 
 
-def set_kernels(model, on: bool) -> None:
-    """Every kernel switch of `model` on or off (the layout encoder's and
-    the decoder's; the int8 switch sits on the ConvLSTM cells)."""
+def set_kernels(model, on: bool, cfg=None) -> None:
+    """Every kernel switch of `model` off, or back on where `cfg` has it on
+    (the layout encoder's and the decoder's; the int8 switch sits on the
+    ConvLSTM cells)."""
     for owner in model.modules():
         for name in SWITCHES:
             if hasattr(owner, name):
-                setattr(owner, name, on)
+                setattr(owner, name, on and getattr(cfg, name, True))
 
 
 def counted():
-    """The eight kernel wrappers, by name."""
+    """The kernel wrappers, by name."""
     from aglayout_tpu_torch.ops.conv8_int8 import conv_small_int8
     from aglayout_tpu_torch.ops.resblocks import residual_trunk
     from aglayout_tpu_torch.ops.spade_c6_int8 import spade_c6_int8
@@ -125,11 +158,31 @@ def counted():
         spade_few_out_conv,
         spade_few_out_conv8,
     )
-    from aglayout_tpu_torch.ops.typed_expand import typed_c3_expand
+    from aglayout_tpu_torch.ops.typed_expand import (
+        typed_c3_expand,
+        typed_c3_expand_v3,
+        typed_c3_expand_v5,
+        typed_c3_expand_v6,
+    )
 
     return {k.__name__: k for k in (residual_trunk, spade_few_out_conv, spade_few_out_conv8,
                                     spade_apply8, typed_c3_expand, conv_small_int8,
-                                    spade_c6_int8, spade_apply_t)}
+                                    spade_c6_int8, spade_apply_t, typed_c3_expand_v3,
+                                    typed_c3_expand_v5, typed_c3_expand_v6)}
+
+
+def launch_counts(reset: bool = False):
+    """Launches by kernel name since the last reset; spade_few_out_conv's by
+    mode (its own name counts the flat-table launches)."""
+    kernels = counted()
+    modes = kernels[K2].mode_launches
+    counts = {name: k.launches for name, k in kernels.items()}
+    counts.update({K2: modes["flat"], K2C: modes["compact"], K2T: modes["transposed"]})
+    if reset:
+        for k in kernels.values():
+            k.launches = 0
+        modes.update(dict.fromkeys(modes, 0))
+    return counts
 
 
 def mean_rel(got, want) -> float:
@@ -159,42 +212,39 @@ def phase_build():
     log(f"[build] {path.name} built and loaded in {time.perf_counter() - t0:.2f} s")
 
 
-def phase_generate(size: int, expect, smi: str, iters: int = 10, int8_against=None):
-    """Full-width generate at `size` with the kernels on and off; the kernels
-    in `expect` must launch with them on, none with them off. With
-    `int8_against` (phase 4's model and its kernels-on image) the model is
-    built with `int8_serving`, K6 must launch exactly O times, and the image
-    and the time are held against the non-int8 ones. Returns the model, the
-    kernels-on launch counts and the kernels-on image."""
+def phase_generate(size: int, expect, smi: str, iters: int = 10, label: str = "", against=None,
+                   **cfg_kw):
+    """Full-width generate at `size` with the kernels on and off; with them
+    on every kernel must launch exactly `expect` times (0 where it is not
+    named), with them off none. `cfg_kw` are Config fields of a
+    configuration other than the default (`int8_serving`, `typed_c3`, a
+    switch off); with `against` (the default model and its kernels-on image)
+    the image and the time are held against the default's. Returns the model,
+    the kernels-on launch counts and the kernels-on image."""
     from aglayout_tpu_torch.bench import layouts
     from aglayout_tpu_torch.config import config_for
     from aglayout_tpu_torch.models import build_generator
     from aglayout_tpu_torch.ops.image import imagenet_deprocess_batch
 
-    int8 = int8_against is not None
-    tag = f"generate {size}{' int8' if int8 else ''}"
-    cfg = config_for(size, batch_size=B, max_objects=O, bf16=True, int8_serving=int8)
+    tag = f"generate {size}{' ' + label if label else ''}"
+    cfg = config_for(size, batch_size=B, max_objects=O, bf16=True, **cfg_kw)
     model = build_generator(cfg, "cuda", seed=0)
     ins = layouts(cfg, B, O, seed=0, device="cuda")
-    kernels = counted()
-    switch = functools.partial(set_kernels, model)
+    switch = functools.partial(set_kernels, model, cfg=cfg)
     switch(True)
-    for k in kernels.values():
-        k.launches = 0
+    launch_counts(reset=True)
     img_on = model.generate(*ins)
     torch.cuda.synchronize()
-    launches = {name: k.launches for name, k in kernels.items()}
+    launches = launch_counts()
     switch(False)
     img_off = model.generate(*ins)
     torch.cuda.synchronize()
-    if any(k.launches != launches[name] for name, k in kernels.items()):
+    if launch_counts() != launches:
         raise AssertionError("a kernel launched with its switch off")
     log(f"[{tag}] launches with the kernels on: {launches}")
-    if min(launches[name] for name in expect) < 1:
-        raise AssertionError(f"the {size}^2 path did not run every kernel of {expect}")
-    # one wide ConvLSTM layer (640 -> 512) x O object slots
-    if launches["conv_small_int8"] != (O if int8 else 0):
-        raise AssertionError(f"conv_small_int8 launched {launches['conv_small_int8']} times")
+    wrong = {name: n for name, n in launches.items() if n != expect.get(name, 0)}
+    if wrong:
+        raise AssertionError(f"{tag}: launches {wrong}, expected {expect}")
     for name, img in (("on", img_on), ("off", img_off)):
         if img.shape != (B, size, size, 3) or not torch.isfinite(img.float()).all():
             raise AssertionError(f"kernels-{name} output: shape {tuple(img.shape)} or non-finite")
@@ -207,13 +257,15 @@ def phase_generate(size: int, expect, smi: str, iters: int = 10, int8_against=No
     # more: bf16 alone, kernels on or off, is 1.7e-2 in mean from the f32
     # model there, hence 3e-2.
     max_tol, mean_tol = 5e-2, (1e-2 if size == 64 else 3e-2)
-    if int8:
-        # int8 on against int8 off: K6 equals its plain version bit for bit,
-        # so the existing on/off limits hold. int8 against the non-int8 bf16
-        # image: the gate convs' quantisation error (under 1 % of the
-        # pre-activations, damped by the gates) on top of the bf16 roundings
-        # it reshuffles; the limits are those of bf16 against f32.
-        checks = (("on vs off", img_on, img_off), ("int8 vs bf16", img_on, int8_against[1]))
+    if against is not None:
+        # A configuration against the default one, both with the kernels on.
+        # int8: K6 equals its plain version bit for bit, so the on/off limits
+        # hold; against the non-int8 bf16 image the gate convs' quantisation
+        # error (under 1 % of the pre-activations, damped by the gates) comes
+        # on top of the bf16 roundings it reshuffles: the limits are those of
+        # bf16 against f32. The typed variants round where v4 rounds and the
+        # K2 routes where K3 rounds, so they come far closer than the limits.
+        checks = (("on vs off", img_on, img_off), ("vs the default", img_on, against[1]))
     else:
         # The same weights in f32, kernels off, TF32 off: the reference both
         # bf16 paths are held against.
@@ -225,50 +277,52 @@ def phase_generate(size: int, expect, smi: str, iters: int = 10, int8_against=No
         del ref
         checks = (("on vs off", img_on, img_off), ("on vs f32", img_on, img_ref),
                   ("off vs f32", img_off, img_ref))
-    for label, got, want in checks:
+    for name, got, want in checks:
         err, rel = errors(got, want)
         mrel = mean_rel(got, want)
-        log(f"[{tag}] kernels {label}: max abs err {err:.3e}, rel {rel:.3e} "
+        log(f"[{tag}] kernels {name}: max abs err {err:.3e}, rel {rel:.3e} "
             f"(tol {max_tol:.0e}), mean rel {mrel:.3e} (tol {mean_tol:.0e})")
         if rel > max_tol or mrel > mean_tol:
-            raise AssertionError(f"{tag} {label} disagree")
+            raise AssertionError(f"{tag} {name} disagree")
     u8 = imagenet_deprocess_batch(img_on)
     log(f"[{tag}] deprocessed to {tuple(u8.shape)} {u8.dtype}, "
         f"mean {u8.float().mean().item():.2f}")
     del img_off, u8, checks
 
-    def timed(label, runs):  # alternated: the card drifts
+    def timed(what, runs):  # alternated: the card drifts
         times = {}
         for key, fn in runs:
             times.setdefault(key, []).append(cuda_ms(fn, iters=iters))
         for key, ms_runs in times.items():
             ms = sum(ms_runs) / len(ms_runs)
-            log(f"[{tag}] {size}^2 B={B} bf16 {label} {key}: {ms:.3f} ms/batch, "
+            log(f"[{tag}] {size}^2 B={B} bf16 {what} {key}: {ms:.3f} ms/batch, "
                 f"{B / ms * 1e3:.1f} img/s on {smi} (runs {ms_runs})")
 
     def run(on):
         switch(on)
         model.generate(*ins)
 
-    timed("int8 kernels" if int8 else "kernels",
-          [("on" if on else "off", functools.partial(run, on))
-           for on in (True, False, False, True, True, False)])
+    if against is None or cfg.int8_serving:
+        timed("kernels", [("on" if on else "off", functools.partial(run, on))
+                          for on in (True, False, False, True, True, False)])
     switch(True)
-    if int8:
-        plain_model = int8_against[0]
+    if against is not None:
+        default = against[0]
         timed("kernels on,", [(key, lambda m=m: m.generate(*ins)) for key, m in
-                              (("int8", model), ("non-int8", plain_model), ("non-int8", plain_model),
-                               ("int8", model), ("int8", model), ("non-int8", plain_model))])
+                              ((label, model), ("default", default), ("default", default),
+                               (label, model), (label, model), ("default", default))])
     return model, launches, img_on
 
 
 def phase_bench():
     """The serving entry point, `python -m aglayout_tpu_torch.bench`, in
-    process: the default and the --int8 configuration, one JSON line each."""
+    process: the default, the --int8 and the A/B configurations, one JSON
+    line each."""
     from aglayout_tpu_torch import bench
 
-    for argv in ([], ["--int8"], [], ["--int8"]):
-        out = bench.run(bench.parser().parse_args(argv + ["--iters", "10"]))
+    for argv in ([], ["--int8"], ["--typed_c3", "v5"], ["--typed_c3", "v6"], ["--no_head8"],
+                 ["--no_head8", "--no_compact_heads"], []):
+        out = bench.run(bench.parser().parse_args(argv + ["--iters", "5"]))
         log(f"[bench] {' '.join(argv) or '(default)'}: {json.dumps(out)}")
         if not (out["value"] > 0 and np.isfinite(out["ms_per_batch"])):
             raise AssertionError(f"bench {argv}: {out}")
@@ -307,6 +361,21 @@ def typed_inputs(model, dtype, gen, dev):
             model.layout_encoder.c3.weight)
 
 
+def typed_v3_inputs(model, dtype, gen, dev):
+    """The same for the typed v3 kernel: the grid zero-padded to 13 x 13."""
+    z2, *rest = typed_inputs(model, dtype, gen, dev)
+    return (torch.nn.functional.pad(z2, (0, 0, 0, 1, 0, 1)), *rest)
+
+
+def head_inputs(dec, mode: str, dtype, gen, dev):
+    """K2 at the c7 head's shape in one of its modes: x (B, 128, 128, 128),
+    laid out (H, W, B, C) for "transposed", SPADE-5's tables, c7's weights."""
+    x, a_tab, b_tab = table_inputs(dec.spade_5, 128, 128, mode == "compact", dtype, gen, dev)
+    if mode == "transposed":
+        x = x.permute(2, 3, 0, 1).contiguous()
+    return x, a_tab, b_tab, dec.c7.weight, dec.c7.bias
+
+
 def gate_inputs(cell, dtype, gen, dev):
     """K6 at the wide ConvLSTM layer's shape: cat(x, h) (B, 640, 8, 8) and
     the cell's quantised 640 -> 512 gate conv."""
@@ -335,6 +404,7 @@ def phase_kernels(model64, model128, model_int8):
     """Each kernel against its plain version; returns the bf16 rows."""
     import torch.nn.functional as F
 
+    from aglayout_tpu_torch.ops import typed_expand as te
     from aglayout_tpu_torch.ops.conv8_int8 import conv_small_int8_plain
     from aglayout_tpu_torch.ops.resblocks import residual_trunk_plain
     from aglayout_tpu_torch.ops.spade_c6_int8 import spade_c6_int8_plain
@@ -344,7 +414,6 @@ def phase_kernels(model64, model128, model_int8):
         spade_few_out_conv8_plain,
         spade_few_out_conv_plain,
     )
-    from aglayout_tpu_torch.ops.typed_expand import typed_c3_expand_plain
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -359,35 +428,63 @@ def phase_kernels(model64, model128, model_int8):
     # the same f32 products around them: 1e-6 in f32
     exact = {"conv_small_int8", "spade_c6_int8"}
     conv_ops = lambda x, w, o: 2.0 * x.shape[0] * x.shape[2] * x.shape[3] * w[0].numel() * o  # noqa: E731
-    cases = [  # name, plain version, f, inputs by dtype, (operations, peak) of the bf16 call
-        ("residual_trunk", residual_trunk_plain, None, lambda dt: trunk_inputs(dt, gen, dev),
+    head_ops = lambda a: (conv_ops(a[0], a[3], 3), BF16)  # noqa: E731
+    # W3z: 14 row types x 12 (13 on the padded grid) rows an object
+    typed_ops = lambda a, rows=14 * 12: (2.0 * a[0].shape[0] * rows * a[6].numel(), BF16)  # noqa: E731
+
+    def typed_v6_ops(a):
+        # v6 skips the product of a row type that no output row has: count
+        # the types that selR names, object by object
+        types = torch.zeros(a[3].shape[0], 14, device=dev).scatter_(1, a[3].long(), 1.0).sum().item()
+        return 2.0 * types * 12 * a[6].numel(), BF16
+
+    def mode(name, **kw):  # K2 or its plain version in one of its modes
+        fn = k[K2] if name == "kernel" else spade_few_out_conv_plain
+        return functools.partial(fn, f=16, **kw)
+
+    cases = [  # name, kernel, plain version, inputs by dtype, (operations, peak) of the bf16 call
+        ("residual_trunk", k["residual_trunk"], residual_trunk_plain,
+         lambda dt: trunk_inputs(dt, gen, dev),
          lambda a: (2 * conv_ops(a[0], a[1][0], 64) * a[1].shape[0], BF16)),
-        ("spade_few_out_conv", spade_few_out_conv_plain, 8,
+        (K2, functools.partial(k[K2], f=8), functools.partial(spade_few_out_conv_plain, f=8),
          lambda dt: (*table_inputs(dec64.spade_3, 64, 64, False, dt, gen, dev),
-                     dec64.c4.weight, dec64.c4.bias),
-         lambda a: (conv_ops(a[0], a[3], 3), BF16)),
-        ("spade_few_out_conv8", spade_few_out_conv8_plain, 16,
-         lambda dt: (*table_inputs(dec128.spade_5, 128, 128, True, dt, gen, dev),
-                     dec128.c7.weight, dec128.c7.bias),
-         lambda a: (conv_ops(a[0], a[3], 3), BF16)),
-        ("spade_apply8", spade_apply8_plain, 16,
+                     dec64.c4.weight, dec64.c4.bias), head_ops),
+        ("spade_few_out_conv8", functools.partial(k["spade_few_out_conv8"], f=16),
+         functools.partial(spade_few_out_conv8_plain, f=16),
+         lambda dt: head_inputs(dec128, "compact", dt, gen, dev), head_ops),
+        ("spade_apply8", functools.partial(k["spade_apply8"], f=16),
+         functools.partial(spade_apply8_plain, f=16),
          lambda dt: table_inputs(dec128.spade_4, 128, 128, True, dt, gen, dev),
          lambda a: (3.0 * a[0].numel(), F32)),
-        ("typed_c3_expand", typed_c3_expand_plain, None,
-         lambda dt: typed_inputs(model128, dt, gen, dev),
-         lambda a: (2.0 * a[0].shape[0] * 14 * 12 * a[6].numel(), BF16)),  # W3z: 168 rows an object
-        ("conv_small_int8", conv_small_int8_plain, None, lambda dt: gate_inputs(cell0, dt, gen, dev),
+        ("typed_c3_expand", k["typed_c3_expand"], te.typed_c3_expand_plain,
+         lambda dt: typed_inputs(model128, dt, gen, dev), typed_ops),
+        ("conv_small_int8", k["conv_small_int8"], conv_small_int8_plain,
+         lambda dt: gate_inputs(cell0, dt, gen, dev),
          lambda a: (conv_ops(a[0], a[1], a[1].shape[0]), INT8)),
-        ("spade_c6_int8", spade_c6_int8_plain, 16, lambda dt: c6_inputs(dec128, dt, gen, dev),
+        ("spade_c6_int8", functools.partial(k["spade_c6_int8"], f=16),
+         functools.partial(spade_c6_int8_plain, f=16), lambda dt: c6_inputs(dec128, dt, gen, dev),
          lambda a: (conv_ops(a[0], a[3], a[3].shape[0]), INT8)),
-        ("spade_apply_t", spade_apply_t_plain, 16,
+        ("spade_apply_t", functools.partial(k["spade_apply_t"], f=16),
+         functools.partial(spade_apply_t_plain, f=16),
          lambda dt: table_inputs(dec128.spade_4, 128, 128, False, dt, gen, dev),
          lambda a: (3.0 * a[0].numel(), F32)),
+        ("typed_c3_expand_v3", k["typed_c3_expand_v3"], te.typed_c3_expand_v3_plain,
+         lambda dt: typed_v3_inputs(model128, dt, gen, dev), lambda a: typed_ops(a, 14 * 13)),
+        ("typed_c3_expand_v5", k["typed_c3_expand_v5"], te.typed_c3_expand_v5_plain,
+         lambda dt: typed_inputs(model128, dt, gen, dev), typed_ops),
+        ("typed_c3_expand_v6", k["typed_c3_expand_v6"], te.typed_c3_expand_v6_plain,
+         lambda dt: typed_inputs(model128, dt, gen, dev), typed_v6_ops),
+        (K2C, mode("kernel", compact=True), mode("plain", compact=True),
+         lambda dt: head_inputs(dec128, "compact", dt, gen, dev), head_ops),
+        (K2T, mode("kernel", transposed=True), mode("plain", transposed=True),
+         lambda dt: head_inputs(dec128, "transposed", dt, gen, dev), head_ops),
+        # K2 on flat tables at the c7 head's shape: what `use_compact_heads`
+        # off launches; no row of its own, the time goes into K2's row
+        (K2 + " at c7", mode("kernel"), mode("plain"),
+         lambda dt: head_inputs(dec128, "flat", dt, gen, dev), head_ops),
     ]
     rows = {}
-    for name, plain, f, make, work in cases:
-        kw = {} if f is None else {"f": f}
-        kernel, plain = functools.partial(k[name], **kw), functools.partial(plain, **kw)
+    for name, kernel, plain, make, work in cases:
         for dt in (torch.bfloat16, torch.float32):
             set_tf32(dt != torch.float32)
             with torch.no_grad():
@@ -407,10 +504,13 @@ def phase_kernels(model64, model128, model_int8):
             if not torch.isfinite(got.float()).all() or rel > limit:
                 raise AssertionError(f"{name} {dt}: kernel disagrees with its plain version")
             if dt == torch.bfloat16:
-                source, replaces = SOURCES[name]
                 bound_ms, bound_by = bound(args, got, *work(args))
                 log(f"[kernel] {name} bf16: bound {bound_ms:.4f} ms by {bound_by}, "
                     f"kernel / bound {ms / bound_ms:.1f}")
+                if name not in SOURCES:  # K2 at the c7 shape
+                    rows[K2].update(c7_ms=ms, c7_plain_ms=ms_plain, c7_bound_ms=bound_ms)
+                    continue
+                source, replaces = SOURCES[name]
                 # library_ms: no single PyTorch call computes any of these
                 # functions (each fuses an affine, a relu, a quantisation or
                 # a gather with its conv), so there is nothing to time
@@ -433,11 +533,12 @@ def phase_kernels(model64, model128, model_int8):
     return rows
 
 
-def phase_reference(size: int, expect, int8: bool = False):
+def phase_reference(size: int, expect, int8: bool = False, **cfg_kw):
     """Small f32 generator: kernels on the card against the CPU plain path;
-    the kernels in `expect` must launch. With `int8`, the model is built
-    with `int8_serving` and the threshold lowered so its narrow cells take
-    the int8 route."""
+    the kernels in `expect`, and no others, must launch. With `int8`, the
+    model is built with `int8_serving` and the threshold lowered so its
+    narrow cells take the int8 route; `cfg_kw` are the Config fields of an
+    A/B configuration."""
     import aglayout_tpu_torch.models.convlstm as convlstm
     from aglayout_tpu_torch.bench import layouts
     from aglayout_tpu_torch.config import config_for
@@ -445,7 +546,7 @@ def phase_reference(size: int, expect, int8: bool = False):
 
     set_tf32(False)
     cfg = config_for(size, conv_dim=16, clstm_layers=2, resi_num=2, num_classes=23,
-                     int8_serving=int8)
+                     int8_serving=int8, **cfg_kw)
     threshold = convlstm._INT8_MIN_CINCOUT
     if int8:
         convlstm._INT8_MIN_CINCOUT = 1
@@ -453,25 +554,25 @@ def phase_reference(size: int, expect, int8: bool = False):
         cpu = build_generator(cfg, "cpu", seed=1)
         gpu = build_generator(cfg, "cuda", seed=1)
         ins = layouts(cfg, 2, 4, seed=1, device="cpu")
-        kernels = counted()
-        before = {name: k.launches for name, k in kernels.items()}
+        launch_counts(reset=True)
         want = cpu.generate(*ins)
         got = gpu.generate(*(t.cuda() for t in ins)).cpu()
     finally:
         convlstm._INT8_MIN_CINCOUT = threshold
-    ran = sorted(name for name, k in kernels.items() if k.launches > before[name])
+    ran = sorted(name for name, n in launch_counts().items() if n)
     err, rel = errors(got, want)
     # f32 on both sides; only summation order differs. With int8, a last-bit
     # difference upstream can move an activation across a quantisation step
     # (1/127 of its chunk's max), which the gates damp: 1e-3
     tol = 1e-3 if int8 else 1e-4
-    log(f"[reference {size}{' int8' if int8 else ''}] conv_dim=16 f32, card vs CPU: "
+    log(f"[reference {size}{' int8' if int8 else ''}{' ' + str(cfg_kw) if cfg_kw else ''}] "
+        f"conv_dim=16 f32, card vs CPU: "
         f"max abs err {err:.3e}, rel {rel:.3e} (tol {tol:.0e}); kernels launched: {ran}")
     set_tf32(True)
     if rel > tol:
         raise AssertionError(f"the card's {size}^2 generate disagrees with the CPU reference")
-    if set(expect) - set(ran):
-        raise AssertionError(f"the {size}^2 reference run did not launch {set(expect) - set(ran)}")
+    if set(ran) != {name for name, n in expect.items() if n}:
+        raise AssertionError(f"the {size}^2 reference run launched {ran}, expected {expect}")
 
 
 def phase_reference_cell():
@@ -506,15 +607,24 @@ def main() -> int:
     phase_build()
     model64, _, _ = phase_generate(64, PATH64, smi, iters=5)
     model128, launches, img128 = phase_generate(128, PATH128, smi)
-    model_int8, launches_int8, _ = phase_generate(128, PATH128, smi,
-                                                  int8_against=(model128, img128))
+    default = (model128, img128)
+    model_int8, launches_int8, _ = phase_generate(128, PATH128_INT8, smi, iters=6, label="int8",
+                                                  against=default, int8_serving=True)
     launches["conv_small_int8"] = launches_int8["conv_small_int8"]
-    del img128
+    for label, cfg_kw, expect, name in VARIANTS:
+        _, counts, _ = phase_generate(128, expect, smi, iters=6, label=label, against=default,
+                                      **cfg_kw)
+        if name:
+            launches[name] = counts[name]
+    del img128, default
     phase_bench()
     rows = phase_kernels(model64, model128, model_int8)
     phase_reference(64, PATH64)
     phase_reference(128, PATH128)
-    phase_reference(128, PATH128 + ("conv_small_int8",), int8=True)
+    phase_reference(128, PATH128_INT8, int8=True)
+    for _, cfg_kw, expect, name in VARIANTS:
+        if name:  # once with v5, once with v6, once with head8 off
+            phase_reference(128, expect, **cfg_kw)
     phase_reference_cell()
     for name, row in rows.items():
         row["launches"] = launches[name]

@@ -29,6 +29,7 @@ from aglayout_tpu_torch.ops.spade_conv import (
     spade_few_out_conv8_plain,
     spade_few_out_conv_plain,
 )
+from aglayout_tpu_torch.ops import typed_expand
 from aglayout_tpu_torch.ops.typed_expand import typed_c3_expand, typed_c3_expand_plain
 
 pytestmark = pytest.mark.gpu
@@ -254,3 +255,144 @@ def test_int8_cell_on_card_matches_cpu(cuda):
         off = torch.cat(cell(x.to(cuda), h.to(cuda), c.to(cuda)), 1).cpu()
         assert conv_small_int8.launches == before + 1
     assert _rel(got, want) < 1e-5 and _rel(off, want) < 1e-5
+
+
+def _typed_case(cuda, dt, n, seed, padded=False):
+    """Inputs over the typed kernels' whole domain at the 128^2 layout
+    encoder's shape (c2=128, c4=256, s3=32); `padded`: v3's 13 x 13 grid."""
+    g = torch.Generator().manual_seed(seed)
+    s3 = 32
+    ints = [torch.randint(0, hi, shape, generator=g, dtype=torch.int32).to(cuda)
+            for hi, shape in ((13, (n, 14, 4)), (14, (n, 14, 4)), (14, (n, s3)), (14, (n, s3)))]
+    z2 = torch.randn(n, 12, 12, 128, generator=g)
+    if padded:
+        z2 = torch.nn.functional.pad(z2, (0, 0, 0, 1, 0, 1))
+    ab = torch.randn(n, 2, 256, generator=g).mul(0.5).to(cuda)
+    weight = torch.randn(256, 128, 4, 4, generator=g).mul(0.05).to(cuda)
+    return z2.to(cuda, DT[dt]), *ints, ab, weight
+
+
+# n = 13: not a multiple of v3's group, and of v5's 128-row tiles
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("variant", ["v3", "v5", "v6"])
+def test_typed_variant_kernel_matches_plain(cuda, dt, variant):
+    kernel = getattr(typed_expand, f"typed_c3_expand_{variant}")
+    plain = getattr(typed_expand, f"typed_c3_expand_{variant}_plain")
+    args = _typed_case(cuda, dt, 13, seed=10, padded=variant == "v3")
+    before = kernel.launches
+    got = kernel(*args)
+    assert kernel.launches == before + 1 and got.shape == (13, 256, 32, 32)
+    assert _rel(got, plain(*args)) < TOL[dt]
+
+
+def test_typed_v6_skips_absent_row_types(cuda):
+    """v6 leaves out the product of a row type no output row has: with one
+    type, and with a type outside [0, 14) (zeros), it still equals the plain
+    version."""
+    z2, idxR, lsel, selR, selC, ab, weight = _typed_case(cuda, "f32", 4, seed=11)
+    selR[0] = 5
+    selR[1, ::2] = 14
+    got = typed_expand.typed_c3_expand_v6(z2, idxR, lsel, selR, selC, ab, weight)
+    want = typed_c3_expand_plain(z2, idxR, lsel, selR.clamp(max=13), selC, ab, weight)
+    want[1, :, ::2] = 0
+    assert _rel(got, want) < TOL["f32"]
+
+
+def test_typed_v5_reuses_its_scratch(cuda):
+    args = _typed_case(cuda, "bf16", 8, seed=12)
+    typed_expand.typed_c3_expand_v5(*args)
+    first = typed_expand.w3z_scratch(1, cuda)
+    typed_expand.typed_c3_expand_v5(*args)
+    assert typed_expand.w3z_scratch(1, cuda).data_ptr() == first.data_ptr()
+    assert first.numel() >= 8 * 168 * 1024 * 2
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("mode", ["flat", "compact", "transposed"])
+def test_head_kernel_modes_at_the_c7_shape(cuda, dt, mode):
+    """K2 at the c7 head's shape (C=128, 128^2, f=16, K=7), which needs its
+    channel tiling, batch cut to 4, in each of its modes."""
+    x, a_tab, b_tab, g = _compact_case(cuda, dt, 4, 128, 128, seed=13)
+    weight = torch.randn(3, 128, 7, 7, generator=g).mul(0.02).to(cuda)
+    bias = torch.randn(3, generator=g).to(cuda)
+    kw = {"compact": mode == "compact", "transposed": mode == "transposed"}
+    if mode != "compact":
+        a_tab, b_tab = (compact_to_flat(t, 16).contiguous() for t in (a_tab, b_tab))
+    if mode == "transposed":
+        x = x.permute(2, 3, 0, 1).contiguous()
+    before = dict(spade_few_out_conv.mode_launches)
+    got = spade_few_out_conv(x, a_tab, b_tab, weight, bias, 16, **kw)
+    want = spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, 16, **kw)
+    after = spade_few_out_conv.mode_launches
+    assert {m: after[m] - before[m] for m in after} == {m: int(m == mode) for m in after}
+    assert got.shape == (4, 3, 128, 128) and _rel(got, want) < TOL[dt]
+
+
+@pytest.mark.parametrize("kw,kernels", [
+    ({"typed_c3": "v5"}, ("typed_c3_expand_v5",)),
+    ({"typed_c3": "v6"}, ("typed_c3_expand_v6",)),
+    ({"use_head8_kernel": False}, ("compact",)),
+    ({"use_head8_kernel": False, "use_compact_heads": False}, ("flat",)),
+])
+def test_generate_variants_on_card_match_cpu(cuda, kw, kernels):
+    """Each A/B configuration on the card, f32, against the plain path on
+    the CPU; its kernel launches and the one it replaces does not."""
+    cfg = config_for(128, conv_dim=16, clstm_layers=2, resi_num=2, num_classes=23, **kw)
+    g = torch.Generator().manual_seed(3)
+    b, o = 2, 4
+    objs = torch.randint(0, cfg.num_classes, (b, o), generator=g)
+    xy0 = torch.rand(b, o, 2, generator=g) * 0.6
+    boxes = torch.cat([xy0, (xy0 + 0.1 + 0.3 * torch.rand(b, o, 2, generator=g)).clamp(max=1)], -1)
+    ins = (objs, boxes, torch.ones(b, o), torch.randn(b, o, cfg.z_dim, generator=g),
+           (torch.rand(b, o, cfg.attribute_dim, generator=g) < 0.1).float())
+
+    def counts():
+        return {"typed_c3_expand": typed_c3_expand.launches,
+                "typed_c3_expand_v5": typed_expand.typed_c3_expand_v5.launches,
+                "typed_c3_expand_v6": typed_expand.typed_c3_expand_v6.launches,
+                "spade_few_out_conv8": spade_few_out_conv8.launches,
+                **spade_few_out_conv.mode_launches}
+
+    before = counts()
+    got = build_generator(cfg, cuda, seed=1).generate(*(t.to(cuda) for t in ins)).cpu()
+    ran = {name: n - before[name] for name, n in counts().items()}
+    want = build_generator(cfg, "cpu", seed=1).generate(*ins)
+    typed = "typed_c3_expand" if "typed_c3" not in kw else kernels[0]
+    expect = {typed: 1, "flat": 1}  # the c4 head, always on flat tables
+    if "use_head8_kernel" in kw:
+        expect[kernels[0]] = expect.get(kernels[0], 0) + 1
+    else:
+        expect["spade_few_out_conv8"] = 1
+    assert {name: n for name, n in ran.items() if n} == expect
+    assert _rel(got, want) < 1e-4  # f32: summation order only
+
+
+def test_variant_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    """On a CUDA tensor a wrapper launches or raises; it never falls back."""
+    z2, idxR, lsel, selR, selC, ab, weight = _typed_case(cuda, "bf16", 2, seed=14)
+    v3, v5, v6 = (getattr(typed_expand, f"typed_c3_expand_v{i}") for i in (3, 5, 6))
+    launches = [k.launches for k in (v3, v5, v6, spade_few_out_conv)]
+    with pytest.raises(ValueError, match="z2 shape"):
+        v3(z2, idxR, lsel, selR, selC, ab, weight)  # the raw grid where the padded one is due
+    with pytest.raises(ValueError, match="z2 shape"):  # c2 = 16: v5's K steps are 32 wide
+        v5(z2[..., :16].contiguous(), idxR, lsel, selR, selC, ab, weight[:, :16].contiguous())
+    with pytest.raises(ValueError, match="weight shape"):  # c4 = 32: v5's stage 2 takes 64
+        v5(z2, idxR, lsel, selR, selC, ab[..., :32].contiguous(), weight[:32].contiguous())
+    with pytest.raises(ValueError, match="int32"):
+        v6(z2, idxR.long(), lsel, selR, selC, ab, weight)
+    with pytest.raises(ValueError, match="dtype"):
+        v6(z2.half(), idxR, lsel, selR, selC, ab, weight)
+    x = torch.zeros(2, 16, 32, 32, device=cuda)
+    flat, compact = torch.zeros(2, 4, 5, 16, 32, device=cuda), torch.zeros(2, 4, 5, 16, 20, device=cuda)
+    w = torch.zeros(3, 16, 3, 3, device=cuda)
+    with pytest.raises(ValueError, match="tables"):
+        spade_few_out_conv(x, flat, flat, w, None, 8, compact=True)
+    with pytest.raises(ValueError, match="tables"):
+        spade_few_out_conv(x, compact, compact, w, None, 8)
+    with pytest.raises(ValueError, match="not supported"):
+        spade_few_out_conv(x, compact, compact, w, None, 8, compact=True, transposed=True)
+    x6 = torch.zeros(32, 32, 2, 6, device=cuda)  # C = 6: no 16-byte vector of channels
+    with pytest.raises(ValueError, match="transposed x needs"):
+        spade_few_out_conv(x6, flat[:, :, :, :6].contiguous(), flat[:, :, :, :6].contiguous(),
+                           w[:, :6].contiguous(), None, 8, transposed=True)
+    assert launches == [k.launches for k in (v3, v5, v6, spade_few_out_conv)]

@@ -71,6 +71,19 @@ def spade_pair(c: int, seg_c: int, seed: int = 0):
     return spade, jspade, {"params": t.params, "batch_stats": t.stats}
 
 
+def head_case(b: int, hs: int, c: int, f: int, k: int, seed: int):
+    """An RGB head's inputs in both packages: `spade_pair(c, 64, seed)`, a
+    (b, hs, hs, 64) segmap, x (b, hs f, hs f, c), a JAX HWIO (k, k, c, 3)
+    kernel and a bias, as numpy."""
+    spade, jspade, variables = spade_pair(c, 64, seed)
+    rng = np.random.RandomState(seed)
+    seg = rng.randn(b, hs, hs, 64).astype(np.float32)
+    x = rng.randn(b, hs * f, hs * f, c).astype(np.float32)
+    kern = (0.1 * rng.randn(k, k, c, 3)).astype(np.float32)
+    bias = rng.randn(3).astype(np.float32)
+    return spade, jspade, variables, seg, x, kern, bias
+
+
 def nchw(a):
     """NHWC array -> torch NCHW f32 tensor."""
     return torch.from_numpy(np.array(a, np.float32)).permute(0, 3, 1, 2)
@@ -79,3 +92,10 @@ def nchw(a):
 def nhwc(t):
     """torch NCHW tensor -> numpy NHWC f32."""
     return t.float().permute(0, 2, 3, 1).numpy()
+
+
+def compact_tables_to_jax_flat(t):
+    """The port's compact SPADE table (B, H/f, 5, C, 5 W/f) -> the layout of
+    JAX's `SPADE.folded_affine_tables_compact_flat`, (B, 5 W/f, H/f, 5, C):
+    a TPU lane layout the port does not carry."""
+    return t.permute(0, 4, 1, 2, 3)
