@@ -98,6 +98,86 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 // Waits until at most one committed group of this thread is still in flight.
 __device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
+// An mbarrier in shared memory (8 bytes, 8-byte aligned; `bar` is its
+// smem_u32 address) that tracks the bytes of asynchronous bulk copies.
+// mbar_init by one thread, then mbar_fence_init and a block barrier before
+// any use. A phase ends when `count` arrivals are in and every expected byte
+// has landed; the phases alternate parity 0, 1, 0, ...
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// One arrival that also announces `bytes` of bulk copies to come.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+// One arrival, releasing this thread's earlier writes to who waits.
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Spins until the phase of parity `parity` has ended.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
+// shared memory by the copy engine (descriptor-free cp.async.bulk); the
+// bytes count towards the current phase of `bar`. One thread asks for it.
+__device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src, uint32_t bytes,
+                                              uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from shared to
+// global memory by the copy engine; the thread goes on at once. The copies a
+// thread asks for before bulk_commit form a group; bulk_wait_read waits until
+// the engine has read the source of every group of this thread, which may
+// then be overwritten (the writes to global memory may still be on their way;
+// they are done when the kernel ends).
+__device__ __forceinline__ void bulk_copy_s2g(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst), "r"(src),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+template <int PENDING = 0>  // ... of every group of this thread but the newest PENDING
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING) : "memory");
+}
+// Orders this thread's earlier shared-memory accesses before later accesses
+// of the copy engine (the async proxy), as before refilling a buffer.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1..15; 0 is __syncthreads') among `threads` threads of the block.
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The transpose of an 8 x 8 matrix of 16-bit values held by a warp: on entry
+// lane l holds row l / 4, columns 2 (l % 4) and 2 (l % 4) + 1 (low half
+// first), as an ldmatrix register; on return it holds the same of the
+// transposed matrix.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
+}
+
 // Four quantised values packed low byte first, as they lie in memory.
 __device__ __forceinline__ uint32_t pack_s8x4(int q0, int q1, int q2, int q3) {
   return (uint32_t)(q0 & 0xff) | ((uint32_t)(q1 & 0xff) << 8) | ((uint32_t)(q2 & 0xff) << 16) |

@@ -31,7 +31,7 @@ NVCC_FLAGS = [
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# exported C functions: name -> argument types (all return int, a cudaError_t)
+# exported C functions: name -> argument types (all return int, a cudaError_t unless said)
 SIGNATURES = {
     # h, w1, w2, ab1, ab2, out, B, C, R, is_bf16, stream
     "residual_trunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -39,11 +39,15 @@ SIGNATURES = {
     "spade_few_out_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # x, a_tab, b_tab, w, bias, out, B, C, H, W, K, O, f, cc, is_bf16, stream
     "spade_few_out_conv8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # H, W, K, O, f -> bytes of shared memory a block of the bf16 kernel takes (no cudaError_t)
+    "spade_few_out_conv8_smem": [_I, _I, _I, _I, _I],
     # x, a_tab, b_tab, out, B, C, H, W, f, cb, is_bf16, stream
     "spade_apply8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "spade_apply_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, is_bf16, stream
     "typed_c3_expand": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # c2, c4, s3 -> bytes of shared memory a block of the bf16 kernel takes (no cudaError_t)
+    "typed_c3_expand_smem": [_I, _I, _I],
     "typed_c3_expand_v6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # z2p, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, group, is_bf16, stream
     "typed_c3_expand_v3": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],

@@ -19,7 +19,9 @@ Kernels, each beside its plain PyTorch version:
     `transposed=True` an x laid out (H, W, B, C), an op no model path
     calls, as in JAX): `csrc/spade_few_out_conv.cu`;
   * `spade_few_out_conv8` (K3, the 128^2 c7 head; compact tables):
-    `csrc/spade_few_out_conv8.cu`;
+    `csrc/spade_few_out_conv8.cu`, in bf16 an implicit GEMM on the tensor
+    cores over weights packed by `pack_head8_weights`, whose arithmetic
+    `spade_few_out_conv8_shifted_plain` repeats;
   * `spade_apply8` (K4, SPADE-4 between c5 and c6 at 128^2; compact
     tables) and `spade_apply_t` (K4', the same function from flat tables;
     like JAX's, an op the decoder does not call): `csrc/spade_apply.cu`.
@@ -84,16 +86,21 @@ def _check_common(name, x, a_tab, b_tab, tab_shape, others=()):
             raise ValueError(f"{name}: all tensors must be on x's device")
 
 
+def _padded_bias(bias, o: int, device):
+    """(O,) bias or None -> (4,) f32, O padded to 4."""
+    bk = torch.zeros(4, dtype=torch.float32, device=device)
+    if bias is not None:
+        bk[:o] = bias.float()
+    return bk
+
+
 def _padded_weights(weight, bias, dtype):
     """(O, C, K, K) weight, (O,) bias -> (C, K, K, 4) f32 of the
     dtype-rounded weights and (4,) f32 bias, O padded to 4."""
     o, c, k, _ = weight.shape
     wk = torch.zeros((c, k, k, 4), dtype=torch.float32, device=weight.device)
     wk[..., :o] = weight.to(dtype).float().permute(1, 2, 3, 0)
-    bk = torch.zeros(4, dtype=torch.float32, device=weight.device)
-    if bias is not None:
-        bk[:o] = bias.float()
-    return wk, bk
+    return wk, _padded_bias(bias, o, weight.device)
 
 
 def _modes(name, compact: bool, transposed: bool) -> str:
@@ -192,19 +199,80 @@ def spade_few_out_conv8_plain(x, a_tab, b_tab, weight, bias, f: int):
     return spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f, compact=True)
 
 
+def pack_head8_weights(weight, dtype):
+    """The c7 head's weights as the B operand of the implicit GEMM of
+    `csrc/spade_few_out_conv8.cu`: (O, C, K, K) -> (C / 16, K, NP, 16) in
+    `dtype`, [chunk of 16 channels][dy][column dx * O + o][channel]. NP is
+    K O rounded up to a multiple of 8, the columns past K O zero. Within a
+    chunk the channels lie in the order 0 1 8 9 2 3 10 11 4 5 12 13 6 7 14 15,
+    so that the four values one lane feeds to `mma.sync` are contiguous.
+    `head8_weight_matrix` gives the same numbers as the (K C, NP) matrix.
+    Two launches: a fill and a copy."""
+    o, c, k, _ = weight.shape
+    if c % 16:
+        raise ValueError(f"pack_head8_weights: C % 16 == 0 (the mma k-step), got C={c}")
+    cols = -(-k * o // 8) * 8
+    buf = torch.zeros((c // 16, k, cols, 4, 2, 2), dtype=dtype, device=weight.device)
+    # channel 16 ci + 8 h + 2 t + e -> [ci, dy, (dx, o), t, h, e]
+    src = weight.view(o, c // 16, 2, 4, 2, k, k).permute(1, 5, 6, 0, 3, 2, 4)
+    buf[:, :, : k * o].view(c // 16, k, k, o, 4, 2, 2).copy_(src)
+    return buf.view(c // 16, k, cols, 16)
+
+
+def head8_weight_matrix(packed):
+    """`pack_head8_weights`'s operand as the GEMM's (K C, NP) matrix: row
+    dy * C + c, column dx * O + o."""
+    nc, k, cols, _ = packed.shape
+    m = packed.view(nc, k, cols, 4, 2, 2).permute(1, 0, 4, 3, 5, 2)  # (dy, ci, h, t, e, n)
+    return m.reshape(k * nc * 16, cols)
+
+
+def unpack_head8_weights(packed, o: int):
+    """The inverse of `pack_head8_weights`: -> (O, C, K, K)."""
+    nc, k, _, _ = packed.shape
+    m = head8_weight_matrix(packed)[:, : k * o]
+    return m.reshape(k, nc * 16, k, o).permute(3, 1, 0, 2)
+
+
+def spade_few_out_conv8_shifted_plain(x, a_tab, b_tab, weight, bias, f: int):
+    """Plain PyTorch version of the schedule of the bf16 kernel in
+    `csrc/spade_few_out_conv8.cu`; the function of `spade_few_out_conv8_plain`
+    with its sums in another order. The column taps are columns of a GEMM,
+    acc[b, y, x', (dx, o)] = sum_dy y[b, :, y + dy - K/2, x'] @ packed[dy],
+    one product per row tap on the packed weights (`pack_head8_weights`),
+    and out[b, o, y, x] = bias[o] + sum_dx acc[b, y, x + dx - K/2, (dx, o)],
+    a column outside the image adding nothing. Used by the tests only."""
+    o, c, k, _ = weight.shape
+    b, _, h, w = x.shape
+    r = k // 2
+    a = expand_tables(compact_to_flat(a_tab, f), f).float()
+    bb = expand_tables(compact_to_flat(b_tab, f), f).float()
+    y = torch.relu(x.float() * a + bb).to(x.dtype).float()
+    yp = F.pad(y, (0, 0, r, r)).permute(0, 2, 3, 1)  # (B, H + 2r, W, C), zero rows outside
+    packed = head8_weight_matrix(pack_head8_weights(weight, x.dtype)).float()
+    acc = sum(yp[:, dy:dy + h] @ packed[dy * c:(dy + 1) * c] for dy in range(k))  # (B, H, W, NP)
+    acc = F.pad(acc, (0, 0, r, r))  # zero columns outside the image
+    out = sum(acc[:, :, dx:dx + w, dx * o:(dx + 1) * o] for dx in range(k))  # (B, H, W, O)
+    if bias is not None:
+        out = out + bias.float()
+    return out.permute(0, 3, 1, 2).to(x.dtype)
+
+
 def _channel_chunk(c: int) -> int:
-    """Channels per shared-memory chunk of `csrc/spade_few_out_conv8.cu`."""
+    """Channels per shared-memory chunk of the f32 kernel of
+    `csrc/spade_few_out_conv8.cu`, and of `csrc/spade_apply.cu`."""
     return next(cc for cc in (16, 8, 4, 2, 1) if c % cc == 0)
 
 
 def spade_few_out_conv8(x, a_tab, b_tab, weight, bias, f: int):
     """relu(x * A + B) convolved with a KxK, O <= 4 output-channel kernel,
-    from compact tables; the default c7 head at 128^2 (four pixels a
-    thread, 1024 / W rows a block).
+    from compact tables; the default c7 head at 128^2. In bf16 an implicit
+    GEMM on the tensor cores (8 output rows a block, 16 channels a chunk);
+    in f32 FMAs (four pixels a thread, 1024 / W rows a block).
 
     Same contract as `spade_few_out_conv8_plain`. A CPU tensor takes the
     plain version. A CUDA tensor launches `csrc/spade_few_out_conv8.cu` or
-    raises.
+    raises a ValueError that names the limit.
     """
     if x.device.type == "cpu":
         return spade_few_out_conv8_plain(x, a_tab, b_tab, weight, bias, f)
@@ -214,15 +282,32 @@ def spade_few_out_conv8(x, a_tab, b_tab, weight, bias, f: int):
     o, _, k, _ = weight.shape
     if weight.shape != (o, c, k, k) or k not in (3, 5, 7) or not 1 <= o <= 4:
         raise ValueError(f"spade_few_out_conv8: weight shape {tuple(weight.shape)} not supported")
-    if f < 5 or h % f or w % f or w % 4 or 1024 % w or h % (1024 // w):
+    if f < 5 or h % f or w % f:
         raise ValueError(f"spade_few_out_conv8: x shape {tuple(x.shape)} with f={f} not supported")
     _check_common("spade_few_out_conv8", x, a_tab, b_tab, (b, h // f, 5, c, w // f * 5),
                   (weight, bias))
-    cc = _channel_chunk(c)
-    smem = cc * k * k * 16 + cc * (1024 // w + k - 1) * (w + k - 1) * x.element_size()
+    if x.dtype == torch.bfloat16:
+        if w not in (64, 128) or h % 8:
+            raise ValueError(f"spade_few_out_conv8: the bf16 kernel takes W in (64, 128) and "
+                             f"H % 8 == 0 (8-row tiles, 16-pixel mma tiles), got H={h}, W={w}")
+        if c % 16:
+            raise ValueError(f"spade_few_out_conv8: the bf16 kernel takes C % 16 == 0 "
+                             f"(the mma k-step), got C={c}")
+        if any(t.data_ptr() % 16 for t in (x, a_tab, b_tab)):
+            raise ValueError("spade_few_out_conv8: the bf16 kernel's 16-byte copies need x and "
+                             "the tables 16-byte aligned")
+        smem = build.library().spade_few_out_conv8_smem(h, w, k, o, f)
+        cc, wk, bk = 0, pack_head8_weights(weight, x.dtype), _padded_bias(bias, o, x.device)
+    else:
+        if w % 4 or 1024 % w or h % (1024 // w):
+            raise ValueError(f"spade_few_out_conv8: the f32 kernel takes W % 4 == 0 dividing "
+                             f"1024 and H % (1024 / W) == 0, got H={h}, W={w}")
+        cc = _channel_chunk(c)
+        smem = cc * k * k * 16 + cc * (1024 // w + k - 1) * (w + k - 1) * x.element_size()
+        wk, bk = _padded_weights(weight, bias, x.dtype)
     if smem > build.SMEM_LIMIT:
-        raise ValueError(f"spade_few_out_conv8: W={w}, K={k} needs {smem} bytes of shared memory")
-    wk, bk = _padded_weights(weight, bias, x.dtype)
+        raise ValueError(f"spade_few_out_conv8: W={w}, K={k}, f={f} needs {smem} bytes of shared "
+                         f"memory, a block has {build.SMEM_LIMIT}")
     out = torch.empty((b, o, h, w), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = build.library().spade_few_out_conv8(

@@ -157,18 +157,72 @@ def _launch(fn, z2, idxR, lsel, selR, selC, ab, wk, out, *tail):
     build.check(err, fn)
 
 
+_swizzle: dict = {}  # device -> the (8, 8) index p ^ r of `pack_typed_c3_weights`
+
+
+def pack_typed_c3_weights(weight, dtype):
+    """The c3 weights as the ring stages of the bf16 kernel of
+    `csrc/typed_c3_expand.cu`: (c4, c2, 4, 4) -> (c4 / 32, 4 c2 / 64, 128,
+    64) in `dtype`, [chunk of 32 channels][slice of 64 k][row n = 32 w +
+    ci][k], with k = h * c2 + c. Within a row the eight 16-byte pieces are
+    swizzled, piece p holding the values of piece p ^ (n % 8), so that eight
+    rows read at one k lie in eight different banks (`ldmatrix`, and the
+    128-byte swizzle of `wgmma`). A stage is one contiguous 16 KB copy."""
+    c4, c2, _, _ = weight.shape
+    if c2 % 16 or c4 % 32:
+        raise ValueError(f"pack_typed_c3_weights: c2 % 16 == 0 and c4 % 32 == 0 (64-deep slices, "
+                         f"32-channel chunks), got c2={c2}, c4={c4}")
+    dev = weight.device
+    if dev not in _swizzle:
+        r = torch.arange(8, device=dev)
+        _swizzle[dev] = (r[:, None] ^ r[None, :]).view(1, 1, 1, 8, 8, 1)
+    k = 4 * c2
+    # [chunk][w][ci / 8][ci % 8][h][c], row n = 32 w + ci = 8 i + r: one copy that converts
+    # and permutes, then one gather that swizzles into the final order
+    wk = torch.empty((c4 // 32, 4, 4, 8, 4, c2), dtype=dtype, device=dev)
+    wk.copy_(weight.view(c4 // 32, 4, 8, c2, 4, 4).permute(0, 5, 1, 2, 4, 3))
+    wk = wk.view(c4 // 32, 16, 8, k // 64, 8, 8).permute(0, 3, 1, 2, 4, 5)  # [chunk][slice][i][r][p]
+    wk = torch.take_along_dim(wk, _swizzle[dev], dim=4)  # [.., r, p, :] <- [.., r, p ^ r, :]
+    return wk.view(c4 // 32, k // 64, 128, 64)
+
+
+def unpack_typed_c3_weights(packed):
+    """The inverse of `pack_typed_c3_weights`: -> (c4, c2, 4, 4)."""
+    nch, nsl, _, _ = packed.shape
+    r = torch.arange(8, device=packed.device)
+    wk = torch.take_along_dim(packed.view(nch, nsl, 16, 8, 8, 8),  # the swizzle is its own inverse
+                              (r[:, None] ^ r[None, :]).view(1, 1, 1, 8, 8, 1), dim=4)
+    c2 = nsl * 16
+    # (chunk, slice, i, r, p, e) -> (chunk, i, r, slice, p, e) = (chunk, w, ci, h, c)
+    wk = wk.permute(0, 2, 3, 1, 4, 5).reshape(nch, 4, 32, 4, c2)
+    return wk.permute(0, 2, 4, 3, 1).reshape(nch * 32, c2, 4, 4)
+
+
 def typed_c3_expand(z2, idxR, lsel, selR, selC, ab, weight):
     """Typed c3 + bn3 affine + relu + expansion; see `typed_c3_expand_plain`
     for the contract (int inputs int32 here).
 
     A CPU tensor takes the plain version. A CUDA tensor launches
-    `csrc/typed_c3_expand.cu` or raises; the launch itself refuses a c2 whose
-    grid and weight tiles exceed a block's shared memory (c2 > 160 in bf16).
+    `csrc/typed_c3_expand.cu` or raises: in bf16 one persistent block an SM
+    whose warps share out the weight copies, the product and the expansion
+    (weights from `pack_typed_c3_weights`); in f32 one block an object on
+    FMAs. A c2 whose tiles exceed a block's shared memory is refused with a
+    ValueError in bf16 (c2 > 176) and by the launch in f32.
     """
     if z2.device.type == "cpu":
         return typed_c3_expand_plain(z2, idxR, lsel, selR, selC, ab, weight)
     n, c2, c4, s3 = _check("typed_c3_expand", z2, idxR, lsel, selR, selC, ab, weight)
-    wk = weight.to(z2.dtype).permute(0, 3, 2, 1).contiguous()  # (C, w, h, c)
+    if z2.dtype == torch.bfloat16:
+        if s3 not in (8, 16, 32, 64):
+            raise ValueError(f"typed_c3_expand: the bf16 kernel takes s3 in (8, 16, 32, 64) (its "
+                             f"epilogue's shifts and 16 KB output pieces), got s3={s3}")
+        smem = build.library().typed_c3_expand_smem(c2, c4, s3)
+        if smem > build.SMEM_LIMIT:
+            raise ValueError(f"typed_c3_expand: c2={c2}, c4={c4}, s3={s3} needs {smem} bytes of "
+                             f"shared memory, a block has {build.SMEM_LIMIT}")
+        wk = pack_typed_c3_weights(weight, z2.dtype)
+    else:
+        wk = weight.to(z2.dtype).permute(0, 3, 2, 1).contiguous()  # (C, w, h, c)
     out = torch.empty((n, c4, s3, s3), dtype=z2.dtype, device=z2.device)
     _launch("typed_c3_expand", z2, idxR, lsel, selR, selC, ab, wk, (out.data_ptr(),), n, c2, c4, s3)
     typed_c3_expand.launches += 1

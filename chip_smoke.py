@@ -33,7 +33,9 @@ raises, and the run then exits non-zero without printing a result:
      K4', which the decoder does not call, at SPADE-4's shape; K2's
      transposed mode and the typed v3, which no model path calls, at the
      c7 head's and K5's), in bf16 and in f32 (TF32 off), with the tolerance
-     stated beside each; K6 and K7 must equal their plain versions to 1e-6
+     stated beside each; the two tensor-core kernels (K3, K5) also in bf16 at
+     the small model's widths, which the f32 reference phase does not send
+     through them; K6 and K7 must equal their plain versions to 1e-6
      in f32, their integer sums being exact; timed with CUDA events, beside
      the bound computed from the shapes and, for v6, from the data;
   8. reference: small f32 generators (64^2, 128^2, 128^2 with
@@ -530,7 +532,33 @@ def phase_kernels(model64, model128, model_int8):
                     log(f"[kernel] {name}: spade_apply8 + cuDNN bf16 F.conv2d {dense:.4f} ms")
             del args, got, want
     set_tf32(True)
+    phase_kernels_small(k, gen, dev, tol[torch.bfloat16])
     return rows
+
+
+def phase_kernels_small(k, gen, dev, limit: float):
+    """K3 and K5 in bf16 at the widths of the small reference model
+    (conv_dim=16: C = 32 at the c7 head, c2 = 32, c4 = 64), which generate
+    reaches in f32 only, where both run their FMA kernels."""
+    from aglayout_tpu_torch.ops.spade_conv import spade_few_out_conv8_plain
+    from aglayout_tpu_torch.ops.typed_expand import typed_c3_expand_plain
+
+    dt = torch.bfloat16
+    rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
+    i32 = lambda hi, shape: torch.randint(0, hi, shape, generator=gen, dtype=torch.int32).to(dev)  # noqa: E731
+    tabs = [(s + 0.3 * rnd(3, 8, 5, 32, 40)).to(dt) for s in (1.0, 0.0)]
+    head = (rnd(3, 32, 128, 128).to(dt), *tabs, 0.05 * rnd(3, 32, 7, 7), rnd(3), 16)
+    n = 9
+    typed = (rnd(n, 12, 12, 32).to(dt), i32(13, (n, 14, 4)), i32(14, (n, 14, 4)), i32(14, (n, 32)),
+             i32(14, (n, 32)), 0.5 * rnd(n, 2, 64), 0.05 * rnd(64, 32, 4, 4))
+    for name, plain, args in (("spade_few_out_conv8", spade_few_out_conv8_plain, head),
+                              ("typed_c3_expand", typed_c3_expand_plain, typed)):
+        with torch.no_grad():
+            err, rel = errors(k[name](*args), plain(*args))
+        log(f"[kernel] {name} bf16 at the small model's widths: max abs err {err:.3e}, "
+            f"rel {rel:.3e} (tol {limit:.0e})")
+        if rel > limit:
+            raise AssertionError(f"{name}: the small-width kernel disagrees with its plain version")
 
 
 def phase_reference(size: int, expect, int8: bool = False, **cfg_kw):

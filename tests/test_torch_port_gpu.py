@@ -396,3 +396,134 @@ def test_variant_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         spade_few_out_conv(x6, flat[:, :, :, :6].contiguous(), flat[:, :, :, :6].contiguous(),
                            w[:, :6].contiguous(), None, 8, transposed=True)
     assert launches == [k.launches for k in (v3, v5, v6, spade_few_out_conv)]
+
+
+# ---- K3 and K5 as redesigned for the tensor cores: shapes the tests above do not reach
+
+
+def _border(h, w, r):
+    """The pixels within r of the image's edge."""
+    mask = torch.ones(h, w, dtype=torch.bool)
+    mask[r:h - r, r:w - r] = False
+    return mask
+
+
+# b = 5 and 3: no multiple of anything the grid could like; C = 32 is the small model's c7 head
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("b,c", [(5, 32), (3, 128)])
+def test_head8_kernel_at_odd_batches_and_at_the_border(cuda, dt, b, c):
+    x, a_tab, b_tab, g = _compact_case(cuda, dt, b, c, 128, seed=20)
+    weight = torch.randn(3, c, 7, 7, generator=g).mul(0.02).to(cuda)
+    got = spade_few_out_conv8(x, a_tab, b_tab, weight, None, 16)
+    want = spade_few_out_conv8_plain(x, a_tab, b_tab, weight, None, 16)
+    edge = _border(128, 128, 3)
+    assert got.shape == (b, 3, 128, 128) and _rel(got, want) < TOL[dt]
+    assert _rel(got[..., edge], want[..., edge]) < TOL[dt]  # where rows and columns outside add zero
+
+
+@pytest.mark.parametrize("k,o", [(5, 4), (3, 1), (7, 4)])
+def test_head8_kernel_at_64_columns(cuda, k, o):
+    """The bf16 kernel's other width, every count of column tiles (K O / 8
+    rounded up: 3, 1, 4)."""
+    x, a_tab, b_tab, g = _compact_case(cuda, "bf16", 2, 48, 64, seed=21)
+    weight = torch.randn(o, 48, k, k, generator=g).mul(0.05).to(cuda)
+    bias = torch.randn(o, generator=g).to(cuda)
+    got = spade_few_out_conv8(x, a_tab, b_tab, weight, bias, 8)
+    assert _rel(got, spade_few_out_conv8_plain(x, a_tab, b_tab, weight, bias, 8)) < TOL["bf16"]
+
+
+def test_head8_kernel_twice_on_a_side_stream(cuda):
+    """Two launches back to back on a stream that is not the default one:
+    the second finds the barriers and buffers as the first did."""
+    x, a_tab, b_tab, g = _compact_case(cuda, "bf16", 4, 128, 128, seed=22)
+    weight = torch.randn(3, 128, 7, 7, generator=g).mul(0.02).to(cuda)
+    bias = torch.randn(3, generator=g).to(cuda)
+    want = spade_few_out_conv8_plain(x, a_tab, b_tab, weight, bias, 16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = spade_few_out_conv8(x, a_tab, b_tab, weight, bias, 16)
+        second = spade_few_out_conv8(x, a_tab, b_tab, weight, bias, 16)
+    side.synchronize()
+    assert torch.equal(first, second) and _rel(first, want) < TOL["bf16"]
+
+
+def _typed_case_at(cuda, dt, n, c2, c4, s3, seed):
+    g = torch.Generator().manual_seed(seed)
+    ints = [torch.randint(0, hi, shape, generator=g, dtype=torch.int32).to(cuda)
+            for hi, shape in ((13, (n, 14, 4)), (14, (n, 14, 4)), (14, (n, s3)), (14, (n, s3)))]
+    z2 = torch.randn(n, 12, 12, c2, generator=g).to(cuda, DT[dt])
+    ab = torch.randn(n, 2, c4, generator=g).mul(0.5).to(cuda)
+    weight = torch.randn(c4, c2, 4, 4, generator=g).mul(0.05).to(cuda)
+    return z2, *ints, ab, weight
+
+
+# n = 1: one block; n = 133: one more object than the card has SMs, so one
+# persistent block takes a second object; the small model's widths, and s3 = 16
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n,c2,c4,s3", [(1, 128, 256, 32), (133, 128, 256, 32), (133, 32, 64, 32),
+                                        (7, 64, 96, 16)])
+def test_typed_kernel_at_other_counts_and_widths(cuda, dt, n, c2, c4, s3):
+    args = _typed_case_at(cuda, dt, n, c2, c4, s3, seed=23)
+    got = typed_c3_expand(*args)
+    assert got.shape == (n, c4, s3, s3) and _rel(got, typed_c3_expand_plain(*args)) < TOL[dt]
+
+
+def test_typed_kernel_keeps_out_of_range_types_zero(cuda):
+    """selR and selC outside [0, 14) give zeros, as in the plain version."""
+    z2, idxR, lsel, selR, selC, ab, weight = _typed_case_at(cuda, "bf16", 3, 32, 64, 32, seed=24)
+    selR[0, ::3] = 14
+    selC[1, 5:9] = -1
+    got = typed_c3_expand(z2, idxR, lsel, selR, selC, ab, weight)
+    want = typed_c3_expand_plain(z2, idxR, lsel, selR.clamp(0, 13), selC.clamp(0, 13), ab, weight)
+    want[0, :, ::3] = 0
+    want[1, :, :, 5:9] = 0
+    assert _rel(got, want) < TOL["bf16"] and (got[0, :, ::3] == 0).all() and (got[1, :, :, 5:9] == 0).all()
+
+
+def test_typed_kernel_twice_on_a_side_stream(cuda):
+    """Two launches back to back on a stream that is not the default one, each
+    with more objects than SMs: the weight ring and the barriers' phases start
+    anew in the second."""
+    args = _typed_case_at(cuda, "bf16", 300, 128, 256, 32, seed=25)
+    want = typed_c3_expand_plain(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = typed_c3_expand(*args)
+        second = typed_c3_expand(*args)
+    side.synchronize()
+    assert torch.equal(first, second) and _rel(first, want) < TOL["bf16"]
+
+
+def test_redesigned_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    """On a CUDA tensor a wrapper launches or raises a ValueError that names
+    the limit; it never falls back."""
+    launches = (spade_few_out_conv8.launches, typed_c3_expand.launches)
+    bf = torch.bfloat16
+
+    def head(b, c, size, f, k=7, dt=bf):
+        x = torch.zeros(b, c, size, size, device=cuda, dtype=dt)
+        tab = torch.zeros(b, size // f, 5, c, size // f * 5, device=cuda, dtype=dt)
+        return x, tab, tab.clone(), torch.zeros(3, c, k, k, device=cuda)
+
+    x, a_tab, b_tab, w = head(1, 32, 32, 8)
+    with pytest.raises(ValueError, match="W in \\(64, 128\\)"):
+        spade_few_out_conv8(x, a_tab, b_tab, w, None, 8)
+    x, a_tab, b_tab, w = head(1, 24, 64, 8)
+    with pytest.raises(ValueError, match="C % 16 == 0"):
+        spade_few_out_conv8(x, a_tab, b_tab, w, None, 8)
+    x, a_tab, b_tab, w = head(1, 32, 64, 8)
+    shifted = torch.zeros(x.numel() + 1, device=cuda, dtype=bf)[1:].view(x.shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        spade_few_out_conv8(shifted, a_tab, b_tab, w, None, 8)
+    x, a_tab, b_tab, w = head(1, 32, 24, 8, dt=torch.float32)
+    with pytest.raises(ValueError, match="dividing 1024"):
+        spade_few_out_conv8(x, a_tab, b_tab, w, None, 8)
+    z2, idxR, lsel, selR, selC, ab, weight = _typed_case_at(cuda, "bf16", 2, 32, 64, 24, seed=26)
+    with pytest.raises(ValueError, match="s3 in \\(8, 16, 32, 64\\)"):
+        typed_c3_expand(z2, idxR, lsel, selR, selC, ab, weight)
+    args = _typed_case_at(cuda, "bf16", 2, 256, 64, 32, seed=27)
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        typed_c3_expand(*args)
+    assert launches == (spade_few_out_conv8.launches, typed_c3_expand.launches)
