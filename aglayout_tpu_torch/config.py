@@ -1,11 +1,12 @@
 """One dataclass config, field for field the JAX package's `Config`.
 
-The model and runtime fields keep the names and defaults of
-`aglayout_tpu/config.py`, so a config reads the same in both packages. The
-TPU knobs are gone; each Hopper kernel on the model's path has one on/off
-switch instead (`use_trunk_kernel`, `use_head_kernel`, `use_typed_kernel`,
-`use_apply_kernel`, `use_head8_kernel`, `use_int8_kernel`), which takes
-effect only for CUDA tensors (on the CPU the model always runs its plain
+Every field keeps the name and default of `aglayout_tpu/config.py`, so a
+config written for the JAX package builds this one. The TPU knobs
+(`pallas_*`, `phase_dc`, `clstm_unroll`) are gone; each Hopper kernel on
+the model's path has one on/off switch instead (`use_trunk_kernel`,
+`use_head_kernel`, `use_typed_kernel`, `use_apply_kernel`,
+`use_head8_kernel`, `use_int8_kernel`), which takes effect only for CUDA
+tensors (on the CPU the model always runs its plain
 PyTorch path). `typed_c3` and `use_compact_heads` choose between kernels of
 one function (the serving A/B configurations of JAX's `AGL_TYPED_C3` and
 `pallas_compact_heads`). `int8_serving` is the JAX package's opt-in approximate
@@ -75,6 +76,31 @@ class Config:
     use_compact_heads: bool = True
     # under int8_serving only
     use_int8_kernel: bool = True  # ops/conv8_int8.conv_small_int8 (ConvLSTM gate conv)
+    # the JAX package's training and input-pipeline knobs, kept so that its
+    # configs load; the port's eval path does not read them
+    allow_uniform_matrix: bool = False
+    fast_decode: bool = True
+    device_masks: bool = True
+    remat: bool = False
+    double_g_forward: bool = False
+
+    # logging / checkpointing (train64.py:449-454)
+    resume: str = "l"  # 'l' latest / 's' scratch / explicit step
+    log_step: int = 10
+    tensorboard_step: int = 100
+    save_step: int = 500
+    save_num: int = 2
+    path: str = "checkpoints"
+
+    @property
+    def exp_name(self) -> str:
+        # mirrors the reference exp_name hyperparameter string (train64.py:457-467)
+        return (
+            f"est_change_att_{self.dataset}_bs{self.batch_size}e{self.embedding_dim}"
+            f"z{self.z_dim}clstm{self.clstm_layers}li{self.lambda_img_adv}"
+            f"lo{self.lambda_obj_adv}lc{self.lambda_obj_cls}lz{self.lambda_z_rec}"
+            f"lc{self.lambda_img_rec}lk{self.lambda_kl}"
+        )
 
     @property
     def clstm_dims(self) -> Tuple[int, ...]:

@@ -9,6 +9,8 @@
 
 namespace agl {
 
+constexpr int SMEM_LIMIT = 232448;  // bytes of shared memory one H100 block can use
+
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 

@@ -12,27 +12,40 @@
 // out = conv(relu(x * A + B)) + bias, (B, O, H, W), A and B the SPADE+BN
 // folded affine.
 //
-// What bounds it on the H100: FMA throughput. At the 64^2 c4 head (B=128, C=64,
-// K=7, bf16) it reads x (67 MB) and two flat tables (42 MB), 33 us at 3.35
-// TB/s, and does 4.9 G multiply-adds on the CUDA cores; at the 128^2 c7
-// head (C=128) 537 MB of x and 13.2 G multiply-adds. The design keeps the
-// bytes near the floor and tiles the channels, so that any C fits:
-//   - one CTA of 256 threads per (image, tile of `rows` output rows, rows *
-//     W <= 512); a thread owns PX=2 adjacent output pixels x 4 (padded)
-//     channels, whose f32 sums stay in registers across the channel chunks;
-//   - per chunk of `cc` channels the CTA loads their cc x K x K x 4 f32
-//     weights and rows [r0 - K/2, r0 + rows + K/2) of x, applies y = relu(x
-//     * A + B) as it loads and keeps y, zero outside the image, in shared
-//     memory ([cc][rows + K - 1][W + K - 1]); the halo's extra reads come
-//     mostly from L2; COMPACT looks its table column up in a small map
-//     made once a block, not by a division per element;
-//   - each thread re-uses each loaded row of y across the K column taps.
+// Two kernels, which the wrapper (ops/spade_conv.py) picks between from the
+// shapes, the dtype and the alignment alone:
+//   - bf16, FLAT or COMPACT, where it takes the shapes (C % 16 == 0, W in
+//     {64, 128}, H % 8 == 0, the tables' rows within shared memory): K3's
+//     implicit GEMM on the tensor cores, spade_head_tc.cuh, with the table
+//     layout as a template parameter. What bounds K2 on the H100 was FMA
+//     throughput, not bytes: at the 64^2 c4 head (B=128, C=64, K=7, bf16) it
+//     reads x (67 MB) and two flat tables (84 MB together), 46 us at 3.35
+//     TB/s, and does 6.6 G multiply-adds with O padded to 4 (4.9 G at O=3),
+//     which the CUDA cores took 0.7 ms over; the tensor cores take them in
+//     a fraction of the apply pass's time. COMPACT runs the very kernel K3
+//     runs, so the two give the same bits;
+//   - f32 (the reference path: TF32 would not hold 1e-4), TRANSPOSED, and
+//     the shapes the tensor-core kernel does not take: FMAs on the CUDA
+//     cores, below. The design keeps the bytes near the floor and tiles the
+//     channels, so that any C fits:
+//       * one CTA of 256 threads per (image, tile of `rows` output rows,
+//         rows * W <= 512); a thread owns PX=2 adjacent output pixels x 4
+//         (padded) channels, whose f32 sums stay in registers across the
+//         channel chunks;
+//       * per chunk of `cc` channels the CTA loads their cc x K x K x 4 f32
+//         weights and rows [r0 - K/2, r0 + rows + K/2) of x, applies y =
+//         relu(x * A + B) as it loads and keeps y, zero outside the image,
+//         in shared memory ([cc][rows + K - 1][W + K - 1]); the halo's extra
+//         reads come mostly from L2; COMPACT looks its table column up in a
+//         small map made once a block, not by a division per element;
+//       * each thread re-uses each loaded row of y across the K column taps.
 // Numerics match pallas_spade_conv.py:92-137: y in f32, rounded to the
 // compute dtype; the zero padding applies to y; f32 accumulation.
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "spade_head_tc.cuh"
 
 namespace {
 
@@ -210,4 +223,21 @@ extern "C" int spade_few_out_conv(const void* x, const void* at, const void* bt,
   if (is_bf16)
     return (int)dispatch_k<__nv_bfloat16>(mode, x, at, bt, w, bias, out, B, C, H, W, K, O, f, rows, cc, s);
   return (int)dispatch_k<float>(mode, x, at, bt, w, bias, out, B, C, H, W, K, O, f, rows, cc, s);
+}
+
+// The tensor-core kernel on flat (compact = 0) or compact tables, bf16: wp is
+// the packed (C / 16, K, NP, 16) operand (ops/spade_conv.pack_head8_weights),
+// bias (4,) f32; the limits stand at tc::dispatch. Returns the launch's
+// cudaError_t.
+extern "C" int spade_few_out_conv_tc(const void* x, const void* at, const void* bt,
+                                     const void* wp, const void* bias, void* out, int B, int C,
+                                     int H, int W, int K, int O, int f, int compact, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (compact) return (int)tc::dispatch<true>(x, at, bt, wp, bias, out, B, C, H, W, K, O, f, s);
+  return (int)tc::dispatch<false>(x, at, bt, wp, bias, out, B, C, H, W, K, O, f, s);
+}
+
+// Bytes of dynamic shared memory a block of the tensor-core kernel takes.
+extern "C" int spade_few_out_conv_tc_smem(int H, int W, int K, int O, int f, int compact) {
+  return tc::layout(H, W, K, O, f, compact != 0).total;
 }

@@ -35,8 +35,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     # h, w1, w2, ab1, ab2, out, B, C, R, is_bf16, stream
     "residual_trunk": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # h, wp, ab1, ab2, out, B, C, R, stream
+    "residual_trunk_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    # C -> bytes of shared memory a block of the tensor-core kernel takes (no cudaError_t)
+    "residual_trunk_tc_smem": [_I],
     # x, a_tab, b_tab, w, bias, out, B, C, H, W, K, O, f, rows, cc, mode, is_bf16, stream
     "spade_few_out_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, a_tab, b_tab, wp, bias, out, B, C, H, W, K, O, f, compact, stream
+    "spade_few_out_conv_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # H, W, K, O, f, compact -> bytes of shared memory (no cudaError_t)
+    "spade_few_out_conv_tc_smem": [_I, _I, _I, _I, _I, _I],
     # x, a_tab, b_tab, w, bias, out, B, C, H, W, K, O, f, cc, is_bf16, stream
     "spade_few_out_conv8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # H, W, K, O, f -> bytes of shared memory a block of the bf16 kernel takes (no cudaError_t)

@@ -7,11 +7,19 @@ so a reference netG checkpoint loads with `load_state_dict`, and
 `aglayout_tpu/utils/torch_import.py::import_generator` maps this model's
 `state_dict` into the JAX trees.
 
-Ported so far: eval-mode `Generator.generate` at 64^2 and 128^2. At 128^2
-the layout encoder takes the typed c2/c3 algebra and the folded c4, and
-the decoder the 2x upsample tail, as JAX's eval path does. The
-CropEncoder holds its parameters, so the `state_dict` is the reference's
-whole netG; its forward and train mode come later.
+Ported so far: eval-mode `Generator.generate` at 64^2 and 128^2, from
+boxes or from explicit masks. At 128^2 the layout encoder takes the typed
+c2/c3 algebra and the folded c4, and the decoder the 2x upsample tail, as
+JAX's eval path does. The CropEncoder holds its parameters, so the
+`state_dict` is the reference's whole netG; its forward and train mode
+come later.
+
+Kernel routes fall through by shape, as JAX's do: at each site a small
+pure function (`LayoutEncoder.trunk_route`, `typed_route`,
+`Decoder.head_route`, `head8_route`, `apply_route`) asks each kernel's
+predicate in turn and names the first that takes the shapes, or the plain
+composition. A route is taken only for CUDA tensors, and only where its
+switch is on.
 """
 
 from __future__ import annotations
@@ -32,9 +40,17 @@ from aglayout_tpu_torch.models.layers import (
     ResidualBlock,
 )
 from aglayout_tpu_torch.models.norms import SPADE, ConditionalBatchNorm, MaskedBatchNorm
-from aglayout_tpu_torch.ops.resblocks import residual_trunk
-from aglayout_tpu_torch.ops.spade_conv import spade_apply8, spade_few_out_conv, spade_few_out_conv8
+from aglayout_tpu_torch.ops.resblocks import residual_trunk, residual_trunk_supports
+from aglayout_tpu_torch.ops.spade_conv import (
+    spade_apply8,
+    spade_apply8_supports,
+    spade_few_out_conv,
+    spade_few_out_conv8,
+    spade_few_out_conv8_supports,
+    spade_few_out_conv_supports,
+)
 from aglayout_tpu_torch.ops.typed_expand import (
+    SUPPORTS,
     VARIANTS,
     typed_c3_expand_plain,
     typed_c3_inputs_from_windows,
@@ -271,18 +287,41 @@ class LayoutEncoder(nn.Module):
         out = torch.einsum("xw,boywc->bocyx", inb, tq) + torch.einsum("boxw,boywc->bocyx", cc, tp)
         return out.reshape(b * o, -1, out_size, out_size)
 
+    def _trunk_weights(self):
+        """The blocks' conv weights (R, C, C, 3, 3) twice and BN affines (R,
+        2, C) twice, stacked for `residual_trunk`."""
+        blocks = [blk.main for blk in self.residual]
+        w1 = torch.stack([m[0].weight for m in blocks])
+        w2 = torch.stack([m[3].weight for m in blocks])
+        ab1 = torch.stack([torch.stack(m[1].eval_affine()) for m in blocks])
+        ab2 = torch.stack([torch.stack(m[4].eval_affine()) for m in blocks])
+        return w1, w2, ab1, ab2
+
+    def trunk_route(self, h) -> str:
+        """"k1" where the trunk kernel takes h (in the compute dtype), else
+        "loop", the blocks one by one."""
+        if self.use_trunk_kernel and len(self.residual):
+            w1 = self.residual[0].main[0].weight.expand(len(self.residual), -1, -1, -1, -1)
+            if residual_trunk_supports(h, w1):
+                return "k1"
+        return "loop"
+
     def _trunk(self, h):
-        if self.use_trunk_kernel and h.is_cuda and len(self.residual) and h.shape[-2:] == (8, 8):
-            blocks = [blk.main for blk in self.residual]
-            w1 = torch.stack([m[0].weight for m in blocks])
-            w2 = torch.stack([m[3].weight for m in blocks])
-            ab1 = torch.stack([torch.stack(m[1].eval_affine()) for m in blocks])
-            ab2 = torch.stack([torch.stack(m[4].eval_affine()) for m in blocks])
-            dt = self.compute_dtype or h.dtype
-            return residual_trunk(h.to(dt).contiguous(), w1, w2, ab1, ab2)
+        if h.is_cuda:
+            x = h.to(self.compute_dtype or h.dtype).contiguous()
+            if self.trunk_route(x) == "k1":
+                return residual_trunk(x, *self._trunk_weights())
         for block in self.residual:
             h = block(h)
         return h
+
+    def typed_route(self, z2, s3: int) -> str:
+        """The typed c3 kernel `Config.typed_c3` names ("v4", "v5", "v6")
+        where it takes the (n, 12, 12, 2d) grid z2, else "plain"
+        (`typed_c3_expand_plain`)."""
+        if self.use_typed_kernel and SUPPORTS[self.typed_c3](z2, self.c3.weight, s3):
+            return self.typed_c3
+        return "plain"
 
     def _typed_c2c3_eval(self, vec, boxes, objs):
         """Exact eval [broadcast -> c0 -> bn1 -> relu -> c2 -> bn2 -> relu ->
@@ -295,9 +334,9 @@ class LayoutEncoder(nn.Module):
         z2[row_type, col_type, :] on a 12 x 12 type grid. The 4-row windows
         of c3 are typed again (14 types per axis), and
         the kernel `typed_c3` names (`ops/typed_expand.VARIANTS`: v4 is
-        `typed_c3_expand`, v5 and v6 two other schedules of its function)
-        computes c3, bn3 and relu on the types and expands them. Returns
-        (B*O, 4d, S3, S3).
+        `typed_c3_expand`, v5 and v6 two other schedules of its function),
+        where it takes the shapes (`typed_route`), computes c3, bn3 and relu
+        on the types and expands them. Returns (B*O, 4d, S3, S3).
         """
         b, o, _ = vec.shape
         d, size = self.conv_dim, self.image_size
@@ -342,9 +381,10 @@ class LayoutEncoder(nn.Module):
         )
         a3, b3 = self.bn3.eval_affine(objs_f)
         ab = torch.stack([a3, b3], 1).float()  # (n, 2, 4d)
-        on_card = self.use_typed_kernel and vec.is_cuda
-        expand = VARIANTS[self.typed_c3] if on_card else typed_c3_expand_plain
-        return expand(z2.reshape(n, 12, 12, 2 * d).contiguous(), *inputs, ab, self.c3.weight)
+        z2 = z2.reshape(n, 12, 12, 2 * d).contiguous()
+        route = self.typed_route(z2, s3) if vec.is_cuda else "plain"
+        expand = typed_c3_expand_plain if route == "plain" else VARIANTS[route]
+        return expand(z2, *inputs, ab, self.c3.weight)
 
     def _c4_fold(self, h, objs_f):
         """Exact eval fold of [c4 (k4 s2 p1) -> bn4 affine -> 2x2 avgpool]
@@ -358,19 +398,35 @@ class LayoutEncoder(nn.Module):
         a4, b4 = self.bn4.eval_affine(objs_f)
         return h * a4[:, :, None, None].to(dt) + b4[:, :, None, None].to(dt)
 
-    def forward(self, objs_att, valid, z, objs, boxes):
-        # objs_att: (B, O, cd); valid, objs: (B, O); z: (B, O, z_dim); boxes: (B, O, 4)
+    def _masks_stage(self, vec, masks, objs_f):
+        """Eval [broadcast -> c0 -> bn1 -> relu -> c2] on explicit masks (JAX
+        `LayoutEncoder.__call__`'s masks branch): each object's code times its
+        mask plane. masks: (B, O, H, W, 1), as JAX takes them. Returns the c2
+        output (B*O, 2d, S2, S2)."""
+        b, o, c = vec.shape
+        m = masks[..., 0].to(vec.dtype)  # (B, O, H, W)
+        h = (vec[:, :, :, None, None] * m[:, :, None]).reshape(b * o, c, *m.shape[2:])
+        h = torch.relu(self.bn1(self.c0(h), objs_f))
+        return self.c2(h)
+
+    def forward(self, objs_att, valid, z, objs, boxes, masks=None):
+        # objs_att: (B, O, cd); valid, objs: (B, O); z: (B, O, z_dim); boxes:
+        # (B, O, 4); masks: (B, O, H, W, 1) or None (the box fast paths)
         b, o = objs_att.shape[:2]
         objs_f = objs.reshape(-1)
         vec = torch.cat([objs_att, z.to(objs_att.dtype)], dim=-1)
-        if self.image_size == 128:
-            # the typed algebra and the c4 fold (JAX's eval path at 128^2; at
-            # 64^2 the dense c3 is cheaper there)
-            h = self._c4_fold(self._typed_c2c3_eval(vec, boxes, objs), objs_f)
+        if masks is None and self.image_size == 128:
+            # the typed algebra (JAX's eval path at 128^2; at 64^2 the dense
+            # c3 is cheaper there)
+            h = self._typed_c2c3_eval(vec, boxes, objs)
         else:
-            h = self._fused_stage1(vec, boxes, objs)
+            h = (self._fused_stage1(vec, boxes, objs) if masks is None
+                 else self._masks_stage(vec, masks, objs_f))
             h = torch.relu(self.bn2(h, objs_f))
             h = torch.relu(self.bn3(self.c3(h), objs_f))
+        if self.image_size == 128:
+            h = self._c4_fold(h, objs_f)
+        else:
             h = self.bn4(self.c4(h), objs_f)  # no relu (reference :504-509)
         h = self.clstm(h.view(b, o, *h.shape[1:]), valid)
         return self._trunk(h)
@@ -433,44 +489,70 @@ class Decoder(nn.Module):
         f = h.shape[-1] // seg.shape[-1]
         return f if f >= 5 and h.shape[-2:] == (f * seg.shape[-2], f * seg.shape[-1]) else 0
 
-    def _head(self, spade, conv, h, seg, compact: bool = False):
-        """conv(relu(SPADE(h, seg))): K2 for CUDA tensors, on flat tables (the
-        c4 head) or on compact ones, the dense composition otherwise."""
+    def head_route(self, h, seg) -> str:
+        """The c4 head: "k2" on flat tables where `spade_few_out_conv` takes
+        the shapes, else "dense"."""
         f = self._factor(h, seg)
-        if self.use_head_kernel and h.is_cuda and f:
-            a_tab, b_tab = (spade.folded_affine_tables_compact(seg) if compact
-                            else spade.folded_affine_tables(seg, f))
-            return spade_few_out_conv(
-                h.contiguous(), a_tab.to(h.dtype).contiguous(), b_tab.to(h.dtype).contiguous(),
-                conv.weight, conv.bias, f, compact=compact,
-            )
-        return conv(torch.relu(spade(h, seg)))
+        if f and self.use_head_kernel and spade_few_out_conv_supports(h, self.c4.weight, f):
+            return "k2"
+        return "dense"
+
+    def head8_route(self, h, seg) -> str:
+        """The c7 head at 128^2, routed as JAX's `Decoder._head` routes it:
+        "k3" on compact tables with `use_head8_kernel` (JAX
+        `pallas_grouped_heads`) where K3 takes the shapes; else "k2" with
+        `use_head_kernel`, on compact tables with `use_compact_heads` (JAX
+        `pallas_compact_heads`), on flat ones without, where K2 takes them;
+        else "dense". (JAX gates K3 and compact tables by its TPU tiling, C %
+        128 == 0; the port by what its kernels take.)"""
+        f = self._factor(h, seg)
+        if f and self.use_head8_kernel and spade_few_out_conv8_supports(h, self.c7.weight, f):
+            return "k3"
+        if f and self.use_head_kernel and spade_few_out_conv_supports(
+                h, self.c7.weight, f, compact=self.use_compact_heads):
+            return "k2"
+        return "dense"
+
+    def apply_route(self, h, seg) -> str:
+        """relu(SPADE-4): "k4" on compact tables where `spade_apply8` takes the
+        shapes, else "dense"."""
+        f = self._factor(h, seg)
+        return "k4" if f and self.use_apply_kernel and spade_apply8_supports(h, f) else "dense"
+
+    @staticmethod
+    def _tables(spade, h, seg, f: int, compact: bool):
+        """SPADE's folded tables of the head or apply at h, in h's dtype."""
+        tabs = spade.folded_affine_tables_compact(seg) if compact else spade.folded_affine_tables(seg, f)
+        return tuple(t.to(h.dtype).contiguous() for t in tabs)
+
+    def _rgb_head(self, spade, conv, h, seg, route: str, compact: bool = False):
+        """conv(relu(SPADE(h, seg))) by `route`: K3 ("k3", compact tables),
+        K2 ("k2", on compact tables with `compact`, else flat) or the dense
+        composition."""
+        if route == "dense":
+            return conv(torch.relu(spade(h, seg)))
+        f = self._factor(h, seg)
+        if route == "k3":
+            return spade_few_out_conv8(h, *self._tables(spade, h, seg, f, True), conv.weight,
+                                       conv.bias, f)
+        return spade_few_out_conv(h, *self._tables(spade, h, seg, f, compact), conv.weight,
+                                  conv.bias, f, compact=compact)
+
+    def _head(self, spade, conv, h, seg):
+        """The c4 head, by `head_route`."""
+        route = self.head_route(h, seg) if h.is_cuda else "dense"
+        return self._rgb_head(spade, conv, h, seg, route)
 
     def _head8(self, spade, conv, h, seg):
-        """The c7 head at 128^2, routed as JAX's `Decoder._head` routes it:
-        K3 on compact tables with `use_head8_kernel` (JAX
-        `pallas_grouped_heads`); else K2 with `use_head_kernel`, on compact
-        tables with `use_compact_heads` (JAX `pallas_compact_heads`), on flat
-        ones without; else the dense composition. (JAX gates each route by
-        its TPU tiling, C % 128 == 0, which at the published widths sends c4
-        to K2 flat and c7 to K3; the port routes by head, at any width.)"""
-        f = self._factor(h, seg)
-        if self.use_head8_kernel and h.is_cuda and f:
-            a_tab, b_tab = spade.folded_affine_tables_compact(seg)
-            return spade_few_out_conv8(
-                h.contiguous(), a_tab.to(h.dtype).contiguous(), b_tab.to(h.dtype).contiguous(),
-                conv.weight, conv.bias, f,
-            )
-        return self._head(spade, conv, h, seg, compact=self.use_compact_heads)
+        """The 128^2 c7 head, by `head8_route`."""
+        route = self.head8_route(h, seg) if h.is_cuda else "dense"
+        return self._rgb_head(spade, conv, h, seg, route, self.use_compact_heads)
 
     def _spade_relu(self, spade, h, seg):
-        """relu(SPADE(h, seg)): K4 on compact tables for CUDA tensors, the
-        dense SPADE otherwise."""
-        f = self._factor(h, seg)
-        if self.use_apply_kernel and h.is_cuda and f:
-            a_tab, b_tab = spade.folded_affine_tables_compact(seg)
-            return spade_apply8(h.contiguous(), a_tab.to(h.dtype).contiguous(),
-                                b_tab.to(h.dtype).contiguous(), f)
+        """relu(SPADE(h, seg)) of SPADE-4, by `apply_route`."""
+        if h.is_cuda and self.apply_route(h, seg) == "k4":
+            f = self._factor(h, seg)
+            return spade_apply8(h, *self._tables(spade, h, seg, f, True), f)
         return torch.relu(spade(h, seg))
 
     def forward(self, hidden, global_h):
@@ -480,14 +562,14 @@ class Decoder(nn.Module):
         h = torch.relu(self.spade_0(h, seg))
         h = torch.relu(self.spade_1(self.dc1(h), seg))
         h = torch.relu(self.spade_2(self.dc2(h), seg))
-        h = self._head(self.spade_3, self.c4, self.dc3(h), seg)
+        h = self._head(self.spade_3, self.c4, self.dc3(h).contiguous(), seg)
         if self.image_size == 64:
             return h
         # 128: nearest 2x upsample of the 64^2 RGB, then refine
-        h = self.c5(F.interpolate(h, scale_factor=2, mode="nearest"))
+        h = self.c5(F.interpolate(h, scale_factor=2, mode="nearest")).contiguous()
         # c6 stays dense under int8_serving, as in JAX: the fused int8 op
         # (ops/spade_c6_int8.py) stands beside the decoder, not in it
-        h = self.c6(self._spade_relu(self.spade_4, h, seg))
+        h = self.c6(self._spade_relu(self.spade_4, h, seg)).contiguous()
         return self._head8(self.spade_5, self.c7, h, seg)
 
 
@@ -523,18 +605,20 @@ class Generator(nn.Module):
         )
 
     @torch.no_grad()
-    def generate(self, objs, boxes, valid, z, attribute):
-        """Layout -> image, eval mode (JAX `Generator.generate` with masks=None).
+    def generate(self, objs, boxes, valid, z, attribute, masks=None):
+        """Layout -> image, eval mode (JAX `Generator.generate` with train=False).
 
         objs: (B, O) int; boxes: (B, O, 4) normalized; valid: (B, O);
-        z: (B, O, z_dim); attribute: (B, O, attribute_dim).
+        z: (B, O, z_dim); attribute: (B, O, attribute_dim); masks: None (the
+        box fast paths) or (B, O, H, W, 1) object masks at the image size,
+        which the layout encoder then broadcasts the object codes over.
         Returns the raw decoder output (B, H, W, 3).
         """
         if self.training:
             raise NotImplementedError("generate runs in eval mode; call .eval() first")
         b, o = objs.shape
         att = self.attribute_encoder(objs.reshape(-1), attribute.reshape(b * o, -1))
-        h = self.layout_encoder(att.view(b, o, -1), valid, z, objs, boxes)
+        h = self.layout_encoder(att.view(b, o, -1), valid, z, objs, boxes, masks)
         g = self.global_encoder(h)
         return self.decoder(h, g).permute(0, 2, 3, 1)
 

@@ -198,7 +198,9 @@ class SPADE(nn.Module):
         normalized = self.param_free_norm(x)
         h, w = segmap.shape[-2:]
         H, W = x.shape[-2:]
-        if H % h == 0 and H // h >= 5 and W == H and w == h:
+        # the class grid in eval mode only, as JAX takes it (under
+        # use_running_average); training runs the full-resolution convs
+        if not self.training and H % h == 0 and H // h >= 5 and W == H and w == h:
             gamma, beta = self._gamma_beta_fused(segmap, H // h)
             return normalized * (1 + gamma) + beta
 

@@ -17,10 +17,14 @@ Kernels, each beside its plain PyTorch version:
   * `spade_few_out_conv` (K2, the c4 head on flat tables; with
     `compact=True` the 128^2 c7 head when K3 is switched off; with
     `transposed=True` an x laid out (H, W, B, C), an op no model path
-    calls, as in JAX): `csrc/spade_few_out_conv.cu`;
+    calls, as in JAX): `csrc/spade_few_out_conv.cu`, two kernels that the
+    wrapper picks between from the shapes, the dtype and the alignment
+    (`spade_few_out_conv_route`): in bf16, flat or compact, K3's implicit
+    GEMM on the tensor cores (`csrc/spade_head_tc.cuh`) wherever it takes
+    the shapes, else FMAs on the CUDA cores;
   * `spade_few_out_conv8` (K3, the 128^2 c7 head; compact tables):
-    `csrc/spade_few_out_conv8.cu`, in bf16 an implicit GEMM on the tensor
-    cores over weights packed by `pack_head8_weights`, whose arithmetic
+    `csrc/spade_few_out_conv8.cu`, in bf16 that implicit GEMM over weights
+    packed by `pack_head8_weights`, whose arithmetic
     `spade_few_out_conv8_shifted_plain` repeats;
   * `spade_apply8` (K4, SPADE-4 between c5 and c6 at 128^2; compact
     tables) and `spade_apply_t` (K4', the same function from flat tables;
@@ -130,31 +134,127 @@ def spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f: int, compact: boo
     return out.to(x.dtype)
 
 
-def _pick_tile(c: int, h: int, w: int, k: int, itemsize: int, vec: int = 1):
-    """(rows, cc) of `csrc/spade_few_out_conv.cu`: the tallest output-row
-    tile with rows * W <= 512 (two pixels a thread), and the widest channel
-    chunk, a multiple of `vec`, whose shared memory fits one block."""
+def _tile(c: int, h: int, w: int, k: int, itemsize: int, vec: int = 1):
+    """(rows, cc) of the FMA kernel of `csrc/spade_few_out_conv.cu`: the
+    tallest output-row tile with rows * W <= 512 (two pixels a thread), and
+    the widest channel chunk, a multiple of `vec`, whose shared memory fits
+    one block; None where there is none."""
     rows = max((r for r in range(1, h + 1) if h % r == 0 and r * w <= 512), default=0)
     for cc in (16, 8, 4, 2, 1):
         smem = (w + 3) // 4 * 16 + cc * k * k * 16 + cc * (rows + k - 1) * (w + k - 1) * itemsize
         if rows and c % cc == 0 and cc % vec == 0 and smem <= build.SMEM_LIMIT:
             return rows, cc
-    raise ValueError(f"spade_few_out_conv: C={c}, W={w}, K={k} not supported")
+    return None
+
+
+def _pick_tile(c: int, h: int, w: int, k: int, itemsize: int, vec: int = 1):
+    """`_tile`, raising where there is none."""
+    tile = _tile(c, h, w, k, itemsize, vec)
+    if tile is None:
+        raise ValueError(f"spade_few_out_conv: C={c}, W={w}, K={k} not supported")
+    return tile
+
+
+# ---- the tensor-core kernel of `csrc/spade_head_tc.cuh`, K3's and K2's in bf16
+_TC_R, _TC_CC = 8, 16  # output rows and channels a chunk
+
+
+def _row_class(u: int, f: int) -> int:
+    return 0 if u == 0 else 1 if u == 1 else 3 if u == f - 2 else 4 if u == f - 1 else 2
+
+
+def _table_slots(h: int, k: int, f: int) -> int:
+    """Distinct (row block, row class) table rows that a tile of 8 output
+    rows and its halo reads, at most over the tiles (`tc::table_slot`)."""
+    most = 1
+    for r0 in range(0, h, _TC_R):
+        keys = [(g // f) * 5 + _row_class(g % f, f) for g in range(r0 - k // 2, r0 + _TC_R + k // 2)
+                if 0 <= g < h]
+        most = max(most, sum(1 for i, key in enumerate(keys) if i == 0 or key != keys[i - 1]))
+    return most
+
+
+def head_tc_layout(h: int, w: int, k: int, o: int, f: int, compact: bool):
+    """(x staging buffers, bytes of shared memory) of a block of the
+    tensor-core kernel, as `tc::layout` in `csrc/spade_head_tc.cuh` computes
+    them: two staging buffers for x where they fit, else one (the flat
+    tables of a 128-wide map take the room of the second)."""
+    th, w5, cols = _TC_R + k - 1, (w // f * 5 if compact else w), -(-k * o // 8) * 8
+    words = th * w // 2
+    xcs = 2 * (words + (36 - words % 32) % 32)
+    xbuf, tbuf = _TC_CC * xcs * 2, _table_slots(h, k, f) * _TC_CC * w5 * 2
+    xs = 144 + 2 * k * cols * _TC_CC * 2
+    sums = _TC_R * w * (cols + 1) * 4
+    for xb in (2, 1):
+        operands = xb * xbuf + 4 * tbuf + th * w * _TC_CC * 2
+        total = xs + max(operands, sums)
+        if total <= build.SMEM_LIMIT:
+            break
+    return xb, total
+
+
+def _head_weight_ok(x, weight, c: int) -> bool:
+    o, _, k, _ = weight.shape
+    return tuple(weight.shape) == (o, c, k, k) and k in (3, 5, 7) and 1 <= o <= 4
+
+
+def spade_head_tc_supports(x, weight, f: int, compact: bool, tables=()) -> bool:
+    """Whether the tensor-core kernel takes x (B, C, H, W) and the weight on
+    tables of that mode: bf16, C % 16 == 0 (the mma k-step), W in (64, 128)
+    and H % 8 == 0 (8-row tiles of 16-pixel mma tiles), W % f == 0 with
+    compact tables, x and the tables 16-byte aligned (the bulk copies), and
+    the block's shared memory. A pure function of shapes, dtype and
+    alignment: no CUDA call."""
+    if x.dtype != torch.bfloat16 or x.dim() != 4:
+        return False
+    _, c, h, w = x.shape
+    o, _, k, _ = weight.shape
+    return (_head_weight_ok(x, weight, c) and c % _TC_CC == 0 and w in (64, 128)
+            and h % _TC_R == 0 and f >= 5 and h % f == 0 and (not compact or w % f == 0)
+            and all(t.data_ptr() % 16 == 0 for t in (x, *tables))
+            and head_tc_layout(h, w, k, o, f, compact)[1] <= build.SMEM_LIMIT)
 
 
 _MODES = {"flat": 0, "compact": 1, "transposed": 2}  # the kernel's mode argument
+
+
+def spade_few_out_conv_route(x, weight, f: int, compact: bool = False, transposed: bool = False,
+                             tables=()) -> str | None:
+    """The kernel `spade_few_out_conv` launches for these inputs: "tc" (bf16,
+    flat or compact tables, where `spade_head_tc_supports`), "fma", or None
+    where neither takes them. A pure function of shapes, dtype and
+    alignment: no CUDA call."""
+    if x.dtype not in _DTYPES or x.dim() != 4 or (compact and transposed) or f < 5:
+        return None
+    h, w, _, c = x.shape if transposed else (*x.shape[2:], *x.shape[:2])
+    if not _head_weight_ok(x, weight, c) or h % f or w % 2 or (compact and w % f):
+        return None
+    if not transposed and spade_head_tc_supports(x, weight, f, compact, tables):
+        return "tc"
+    vec = 16 // x.element_size() if transposed else 1
+    if transposed and (c % vec or x.data_ptr() % 16):
+        return None
+    return "fma" if _tile(c, h, w, weight.shape[-1], x.element_size(), vec) else None
+
+
+def spade_few_out_conv_supports(x, weight, f: int, compact: bool = False,
+                                transposed: bool = False) -> bool:
+    """Whether a kernel of `spade_few_out_conv` takes x and the weight."""
+    return spade_few_out_conv_route(x, weight, f, compact, transposed) is not None
 
 
 def spade_few_out_conv(x, a_tab, b_tab, weight, bias, f: int, compact: bool = False,
                        transposed: bool = False):
     """relu(x * A + B) convolved with a KxK, O <= 4 output-channel kernel,
     from flat tables, from compact ones (`compact`), or on an x laid out
-    (H, W, B, C) (`transposed`, flat tables). The channels are tiled, so any
-    C fits, the c7 head's 128 at W = 128 included.
+    (H, W, B, C) (`transposed`, flat tables). The FMA kernel tiles the
+    channels, so any C fits, the c7 head's 128 at W = 128 included.
 
     Same contract as `spade_few_out_conv_plain`. A CPU tensor takes the
-    plain version. A CUDA tensor launches `csrc/spade_few_out_conv.cu` or
-    raises; `launches` counts every launch, `mode_launches` by mode.
+    plain version. A CUDA tensor launches a kernel of
+    `csrc/spade_few_out_conv.cu` (`spade_few_out_conv_route`) or raises;
+    `launches` counts every launch, `mode_launches` by mode and
+    `route_launches` by kernel.
     """
     if x.device.type == "cpu":
         return spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f, compact, transposed)
@@ -163,7 +263,7 @@ def spade_few_out_conv(x, a_tab, b_tab, weight, bias, f: int, compact: bool = Fa
     mode = _modes("spade_few_out_conv", compact, transposed)
     h, w, b, c = x.shape if transposed else (*x.shape[2:], *x.shape[:2])
     o, _, k, _ = weight.shape
-    if weight.shape != (o, c, k, k) or k not in (3, 5, 7) or not 1 <= o <= 4:
+    if not _head_weight_ok(x, weight, c):
         raise ValueError(f"spade_few_out_conv: weight shape {tuple(weight.shape)} not supported")
     if h % f or w % 2 or f < 5 or (compact and w % f):
         raise ValueError(f"spade_few_out_conv: x shape {tuple(x.shape)} with f={f} not supported")
@@ -175,22 +275,34 @@ def spade_few_out_conv(x, a_tab, b_tab, weight, bias, f: int, compact: bool = Fa
     if transposed and (c % vec or x.data_ptr() % 16):
         raise ValueError(f"spade_few_out_conv: a transposed x needs C % {vec} == 0 and 16-byte "
                          "alignment (the kernel's vector loads)")
-    rows, cc = _pick_tile(c, h, w, k, x.element_size(), vec)
-    wk, bk = _padded_weights(weight, bias, x.dtype)
+    route = spade_few_out_conv_route(x, weight, f, compact, transposed, (a_tab, b_tab))
+    if route is None:
+        raise ValueError(f"spade_few_out_conv: C={c}, W={w}, K={k} not supported")
     out = torch.empty((b, o, h, w), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = build.library().spade_few_out_conv(
-        x.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-        out.data_ptr(), b, c, h, w, k, o, f, rows, cc, _MODES[mode], _DTYPES[x.dtype], stream,
-    )
+    if route == "tc":
+        wk, bk = pack_head8_weights(weight, x.dtype), _padded_bias(bias, o, x.device)
+        err = build.library().spade_few_out_conv_tc(
+            x.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+            out.data_ptr(), b, c, h, w, k, o, f, int(compact), stream,
+        )
+    else:
+        rows, cc = _pick_tile(c, h, w, k, x.element_size(), vec)
+        wk, bk = _padded_weights(weight, bias, x.dtype)
+        err = build.library().spade_few_out_conv(
+            x.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(), wk.data_ptr(), bk.data_ptr(),
+            out.data_ptr(), b, c, h, w, k, o, f, rows, cc, _MODES[mode], _DTYPES[x.dtype], stream,
+        )
     build.check(err, "spade_few_out_conv")
     spade_few_out_conv.launches += 1
     spade_few_out_conv.mode_launches[mode] += 1
+    spade_few_out_conv.route_launches[route] += 1
     return out
 
 
 spade_few_out_conv.launches = 0
 spade_few_out_conv.mode_launches = dict.fromkeys(_MODES, 0)
+spade_few_out_conv.route_launches = {"tc": 0, "fma": 0}
 
 
 def spade_few_out_conv8_plain(x, a_tab, b_tab, weight, bias, f: int):
@@ -234,19 +346,22 @@ def unpack_head8_weights(packed, o: int):
     return m.reshape(k, nc * 16, k, o).permute(3, 1, 0, 2)
 
 
-def spade_few_out_conv8_shifted_plain(x, a_tab, b_tab, weight, bias, f: int):
-    """Plain PyTorch version of the schedule of the bf16 kernel in
-    `csrc/spade_few_out_conv8.cu`; the function of `spade_few_out_conv8_plain`
-    with its sums in another order. The column taps are columns of a GEMM,
-    acc[b, y, x', (dx, o)] = sum_dy y[b, :, y + dy - K/2, x'] @ packed[dy],
-    one product per row tap on the packed weights (`pack_head8_weights`),
-    and out[b, o, y, x] = bias[o] + sum_dx acc[b, y, x + dx - K/2, (dx, o)],
-    a column outside the image adding nothing. Used by the tests only."""
+def spade_few_out_conv8_shifted_plain(x, a_tab, b_tab, weight, bias, f: int, compact: bool = True):
+    """Plain PyTorch version of the schedule of the tensor-core kernel
+    (`csrc/spade_head_tc.cuh`, K3's and, in bf16, K2's); the function of
+    `spade_few_out_conv_plain` on compact tables (`compact`, K3's) or flat
+    ones, with its sums in another order. The column taps are columns of a
+    GEMM, acc[b, y, x', (dx, o)] = sum_dy y[b, :, y + dy - K/2, x'] @
+    packed[dy], one product per row tap on the packed weights
+    (`pack_head8_weights`), and out[b, o, y, x] = bias[o] + sum_dx acc[b, y,
+    x + dx - K/2, (dx, o)], a column outside the image adding nothing. Used
+    by the tests only."""
     o, c, k, _ = weight.shape
     b, _, h, w = x.shape
     r = k // 2
-    a = expand_tables(compact_to_flat(a_tab, f), f).float()
-    bb = expand_tables(compact_to_flat(b_tab, f), f).float()
+    if compact:
+        a_tab, b_tab = compact_to_flat(a_tab, f), compact_to_flat(b_tab, f)
+    a, bb = expand_tables(a_tab, f).float(), expand_tables(b_tab, f).float()
     y = torch.relu(x.float() * a + bb).to(x.dtype).float()
     yp = F.pad(y, (0, 0, r, r)).permute(0, 2, 3, 1)  # (B, H + 2r, W, C), zero rows outside
     packed = head8_weight_matrix(pack_head8_weights(weight, x.dtype)).float()
@@ -264,6 +379,29 @@ def _channel_chunk(c: int) -> int:
     return next(cc for cc in (16, 8, 4, 2, 1) if c % cc == 0)
 
 
+def _head8_fma_smem(c: int, w: int, k: int, itemsize: int) -> int:
+    """Bytes of shared memory of a block of K3's FMA kernel (f32)."""
+    cc = _channel_chunk(c)
+    return cc * k * k * 16 + cc * (1024 // w + k - 1) * (w + k - 1) * itemsize
+
+
+def spade_few_out_conv8_supports(x, weight, f: int, tables=()) -> bool:
+    """Whether the kernel of `spade_few_out_conv8` takes x (B, C, H, W) and
+    the weight on compact tables: in bf16 the tensor-core kernel
+    (`spade_head_tc_supports`), in f32 the FMA kernel (W % 4 == 0 dividing
+    1024, H % (1024 / W) == 0). A pure function of shapes, dtype and
+    alignment: no CUDA call."""
+    if x.dtype not in _DTYPES or x.dim() != 4:
+        return False
+    _, c, h, w = x.shape
+    if not _head_weight_ok(x, weight, c) or f < 5 or h % f or w % f:
+        return False
+    if x.dtype == torch.bfloat16:
+        return spade_head_tc_supports(x, weight, f, True, tables)
+    return (w % 4 == 0 and 1024 % w == 0 and h % (1024 // w) == 0
+            and _head8_fma_smem(c, w, weight.shape[-1], x.element_size()) <= build.SMEM_LIMIT)
+
+
 def spade_few_out_conv8(x, a_tab, b_tab, weight, bias, f: int):
     """relu(x * A + B) convolved with a KxK, O <= 4 output-channel kernel,
     from compact tables; the default c7 head at 128^2. In bf16 an implicit
@@ -272,7 +410,8 @@ def spade_few_out_conv8(x, a_tab, b_tab, weight, bias, f: int):
 
     Same contract as `spade_few_out_conv8_plain`. A CPU tensor takes the
     plain version. A CUDA tensor launches `csrc/spade_few_out_conv8.cu` or
-    raises a ValueError that names the limit.
+    raises a ValueError that names the limit (`spade_few_out_conv8_supports`
+    says beforehand).
     """
     if x.device.type == "cpu":
         return spade_few_out_conv8_plain(x, a_tab, b_tab, weight, bias, f)
@@ -280,7 +419,7 @@ def spade_few_out_conv8(x, a_tab, b_tab, weight, bias, f: int):
         raise ValueError(f"spade_few_out_conv8: unsupported device {x.device}")
     b, c, h, w = x.shape
     o, _, k, _ = weight.shape
-    if weight.shape != (o, c, k, k) or k not in (3, 5, 7) or not 1 <= o <= 4:
+    if not _head_weight_ok(x, weight, c):
         raise ValueError(f"spade_few_out_conv8: weight shape {tuple(weight.shape)} not supported")
     if f < 5 or h % f or w % f:
         raise ValueError(f"spade_few_out_conv8: x shape {tuple(x.shape)} with f={f} not supported")
@@ -296,14 +435,14 @@ def spade_few_out_conv8(x, a_tab, b_tab, weight, bias, f: int):
         if any(t.data_ptr() % 16 for t in (x, a_tab, b_tab)):
             raise ValueError("spade_few_out_conv8: the bf16 kernel's 16-byte copies need x and "
                              "the tables 16-byte aligned")
-        smem = build.library().spade_few_out_conv8_smem(h, w, k, o, f)
+        smem = head_tc_layout(h, w, k, o, f, True)[1]
         cc, wk, bk = 0, pack_head8_weights(weight, x.dtype), _padded_bias(bias, o, x.device)
     else:
         if w % 4 or 1024 % w or h % (1024 // w):
             raise ValueError(f"spade_few_out_conv8: the f32 kernel takes W % 4 == 0 dividing "
                              f"1024 and H % (1024 / W) == 0, got H={h}, W={w}")
         cc = _channel_chunk(c)
-        smem = cc * k * k * 16 + cc * (1024 // w + k - 1) * (w + k - 1) * x.element_size()
+        smem = _head8_fma_smem(c, w, k, x.element_size())
         wk, bk = _padded_weights(weight, bias, x.dtype)
     if smem > build.SMEM_LIMIT:
         raise ValueError(f"spade_few_out_conv8: W={w}, K={k}, f={f} needs {smem} bytes of shared "
@@ -331,6 +470,16 @@ def spade_apply8_plain(x, a_tab, b_tab, f: int):
     a = expand_tables(compact_to_flat(a_tab, f), f).float()
     b = expand_tables(compact_to_flat(b_tab, f), f).float()
     return torch.relu(x.float() * a + b).to(x.dtype)
+
+
+def spade_apply8_supports(x, f: int) -> bool:
+    """Whether the kernel of `spade_apply8` takes x (B, C, H, W) on compact
+    tables: f >= 5 dividing H and W, W % 8 == 0, x 16-byte aligned (its
+    vector loads). A pure function of shapes, dtype and alignment."""
+    if x.dtype not in _DTYPES or x.dim() != 4:
+        return False
+    h, w = x.shape[2:]
+    return f >= 5 and h % f == 0 and w % f == 0 and w % 8 == 0 and x.data_ptr() % 16 == 0
 
 
 def spade_apply8(x, a_tab, b_tab, f: int):

@@ -145,6 +145,57 @@ def _check(name, z2, idxR, lsel, selR, selC, ab, weight, nl=NZ, c2_mult=16, chun
     return n, c2, c4, s3
 
 
+def typed_tc_smem(c2: int, c4: int, s3: int) -> int:
+    """Bytes of shared memory of a block of the bf16 kernel of
+    `csrc/typed_c3_expand.cu`, as its `tc::layout` computes them: the
+    3-stage weight ring, the grid tile, W3z, V3, the row types, the output
+    staging, the affine and the index tables. No CUDA call."""
+    align16 = lambda v: (v + 15) // 16 * 16  # noqa: E731
+    zs = 1024 + 3 * 128 * 64 * 2
+    w3z = zs + align16((NZ * NZ + 1) * (c2 + 8) * 2)
+    erows = w3z + NA * NZ * 136 * 2 + 32 * (NA + 1) * 16 * 2
+    ab = erows + 32 * (NA + 1) * s3 * 2 + 2 * 16384
+    return ab + 2 * c4 * 4 + (2 * NA * 4 + s3) * 4
+
+
+def _shapes_ok(z2, weight, s3: int, nl: int, c2_mult: int, chunk) -> bool:
+    """The shape, dtype and alignment limits of `_check`, as a predicate."""
+    if z2.dtype not in _DTYPES or z2.dim() != 4:
+        return False
+    n, c2, c4 = z2.shape[0], z2.shape[-1], weight.shape[0]
+    return (tuple(z2.shape) == (n, nl, nl, c2) and n >= 1 and c2 % c2_mult == 0
+            and tuple(weight.shape) == (c4, c2, 4, 4) and c4 % chunk[z2.dtype] == 0
+            and s3 % 8 == 0 and z2.data_ptr() % 16 == 0)
+
+
+def typed_c3_expand_supports(z2, weight, s3: int) -> bool:
+    """Whether the kernel of `typed_c3_expand` takes the (n, 12, 12, c2)
+    grid, the (c4, c2, 4, 4) weight and an s3 x s3 output: c2 % 16 == 0, c4
+    a multiple of the chunk (32 in bf16, 8 in f32), s3 % 8 == 0, z2 16-byte
+    aligned; in bf16 also s3 in (8, 16, 32, 64) and the block's shared
+    memory. A pure function of shapes, dtype and alignment."""
+    if not _shapes_ok(z2, weight, s3, NZ, 16, _CHUNK):
+        return False
+    return z2.dtype != torch.bfloat16 or (
+        s3 in (8, 16, 32, 64)
+        and typed_tc_smem(z2.shape[-1], weight.shape[0], s3) <= build.SMEM_LIMIT)
+
+
+def typed_c3_expand_v3_supports(z2p, weight, s3: int) -> bool:
+    """The same for `typed_c3_expand_v3` on the padded (n, 13, 13, c2) grid."""
+    return _shapes_ok(z2p, weight, s3, NL, 16, _CHUNK)
+
+
+def typed_c3_expand_v5_supports(z2, weight, s3: int) -> bool:
+    """The same for `typed_c3_expand_v5`: c2 % 32 == 0, c4 % 64 == 0."""
+    return _shapes_ok(z2, weight, s3, NZ, 32, _CHUNK_V5)
+
+
+def typed_c3_expand_v6_supports(z2, weight, s3: int) -> bool:
+    """The same for `typed_c3_expand_v6`: c4 % 16 == 0 in bf16, % 8 in f32."""
+    return _shapes_ok(z2, weight, s3, NZ, 16, _CHUNK_V6)
+
+
 def _launch(fn, z2, idxR, lsel, selR, selC, ab, wk, out, *tail):
     """Call the library function `fn` on the tensors' pointers and raise on
     a non-zero cudaError_t. tail: the integers after `out`, then is_bf16 and
@@ -216,7 +267,7 @@ def typed_c3_expand(z2, idxR, lsel, selR, selC, ab, weight):
         if s3 not in (8, 16, 32, 64):
             raise ValueError(f"typed_c3_expand: the bf16 kernel takes s3 in (8, 16, 32, 64) (its "
                              f"epilogue's shifts and 16 KB output pieces), got s3={s3}")
-        smem = build.library().typed_c3_expand_smem(c2, c4, s3)
+        smem = typed_tc_smem(c2, c4, s3)
         if smem > build.SMEM_LIMIT:
             raise ValueError(f"typed_c3_expand: c2={c2}, c4={c4}, s3={s3} needs {smem} bytes of "
                              f"shared memory, a block has {build.SMEM_LIMIT}")
@@ -325,5 +376,8 @@ def typed_c3_expand_v6(z2, idxR, lsel, selR, selC, ab, weight):
 
 typed_c3_expand_v6.launches = 0
 
-# Config.typed_c3 -> the kernel `LayoutEncoder._typed_c2c3_eval` launches
+# Config.typed_c3 -> the kernel `LayoutEncoder._typed_c2c3_eval` launches, and
+# the predicate that says whether it takes the shapes
 VARIANTS = {"v4": typed_c3_expand, "v5": typed_c3_expand_v5, "v6": typed_c3_expand_v6}
+SUPPORTS = {"v4": typed_c3_expand_supports, "v5": typed_c3_expand_v5_supports,
+            "v6": typed_c3_expand_v6_supports}

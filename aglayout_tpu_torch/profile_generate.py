@@ -1,16 +1,18 @@
-"""Where a 128^2 serving batch spends its time, stage by stage and kernel by
+"""Where a serving batch spends its time, stage by stage and kernel by
 kernel, on one CUDA card:
 
-    python3 -m aglayout_tpu_torch.profile_generate [--off] [--batches 5]
+    python3 -m aglayout_tpu_torch.profile_generate [--image_size 64|128] [--off] [--batches 5]
 
-The full-width 128^2 generator (B = 128, O = 10, bf16, seeded weights, the
-serving bench's layouts), the hand-written kernels on (or, with `--off`,
-their plain versions). Two passes over `--batches` batches after warm-up:
+The full-width generator (128^2 by default; B = 128, O = 10, bf16, seeded
+weights, the serving bench's layouts), the hand-written kernels on (or,
+with `--off`, their plain versions). Two passes over `--batches` batches
+after warm-up:
 
-  * staged: every stage of `STAGES` is wrapped so that the device is idle
-    when it starts and is waited for when it ends; CUDA events give its
-    device time, the host clock its host time. The stages do not overlap,
-    so their sum is more than a batch takes when it runs freely;
+  * staged: every stage of `STAGES` that the model runs is wrapped so that
+    the device is idle when it starts and is waited for when it ends; CUDA
+    events give its device time, the host clock its host time. The stages
+    do not overlap, so their sum is more than a batch takes when it runs
+    freely;
   * free-running under `torch.profiler`: kernel launches per batch, the
     device's busy time per batch (the sum of its kernels' times), the batch
     time by CUDA events, and the kernels that take most of it, by name.
@@ -27,6 +29,7 @@ import torch
 # stage -> (owner attribute path from the generator, method)
 STAGES = (
     ("AttributeEncoder", "attribute_encoder", "forward"),
+    ("LayoutEncoder stage 1 on boxes (64^2)", "layout_encoder", "_fused_stage1"),
     ("LayoutEncoder typed c2/c3 (+K5)", "layout_encoder", "_typed_c2c3_eval"),
     ("LayoutEncoder c4 fold + bn4", "layout_encoder", "_c4_fold"),
     ("ConvLSTM", "layout_encoder.clstm", "forward"),
@@ -48,11 +51,15 @@ def _owner(model, path: str):
 
 
 def staged(model, ins, batches: int) -> dict:
-    """{stage: (device ms, host ms) per batch}, each stage run alone."""
-    totals = {name: [0.0, 0.0] for name, _, _ in STAGES}
+    """{stage: (device ms, host ms) per batch}, each stage run alone; the
+    stages the model runs."""
+    totals = {name: [0.0, 0.0, 0] for name, _, _ in STAGES}
     originals = []
     for name, path, method in STAGES:
-        owner = _owner(model, path)
+        try:
+            owner = _owner(model, path)
+        except AttributeError:  # a layer of the 128^2 tail in a 64^2 model
+            continue
         fn = getattr(owner, method)
         originals.append((owner, method))
 
@@ -67,6 +74,7 @@ def staged(model, ins, batches: int) -> dict:
             torch.cuda.synchronize()
             totals[_name][0] += start.elapsed_time(end)
             totals[_name][1] += host * 1e3
+            totals[_name][2] += 1
             return out
 
         setattr(owner, method, wrapped)  # an instance attribute shadows the method
@@ -76,7 +84,8 @@ def staged(model, ins, batches: int) -> dict:
     finally:
         for owner, method in originals:
             delattr(owner, method)
-    return {name: (dev / batches, host / batches) for name, (dev, host) in totals.items()}
+    return {name: (dev / batches, host / batches) for name, (dev, host, calls) in totals.items()
+            if calls}
 
 
 def profiled(model, ins, batches: int):
@@ -112,6 +121,7 @@ def main() -> int:
     from aglayout_tpu_torch.models import build_generator
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--image_size", type=int, default=128, choices=[64, 128])
     ap.add_argument("--off", action="store_true", help="the kernels' plain versions")
     ap.add_argument("--batches", type=int, default=5)
     args = ap.parse_args()
@@ -119,11 +129,12 @@ def main() -> int:
         raise SystemExit("profile_generate: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    cfg = config_for(128, batch_size=cs.B, max_objects=cs.O, bf16=True)
+    size = args.image_size
+    cfg = config_for(size, batch_size=cs.B, max_objects=cs.O, bf16=True)
     model = build_generator(cfg, "cuda", seed=0)
     cs.set_kernels(model, not args.off, cfg)
     ins = layouts(cfg, cs.B, cs.O, seed=0, device="cuda")
-    tag = f"[profile] 128^2 B={cs.B} bf16, kernels {'off' if args.off else 'on'}, {smi}"
+    tag = f"[profile] {size}^2 B={cs.B} bf16, kernels {'off' if args.off else 'on'}, {smi}"
     for _ in range(3):
         model.generate(*ins)
     print(f"{tag}: staged, {args.batches} batches", flush=True)

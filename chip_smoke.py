@@ -33,16 +33,29 @@ raises, and the run then exits non-zero without printing a result:
      K4', which the decoder does not call, at SPADE-4's shape; K2's
      transposed mode and the typed v3, which no model path calls, at the
      c7 head's and K5's), in bf16 and in f32 (TF32 off), with the tolerance
-     stated beside each; the two tensor-core kernels (K3, K5) also in bf16 at
-     the small model's widths, which the f32 reference phase does not send
+     stated beside each, and for K1 and K2 the kernel the wrapper took
+     (tensor cores or FMAs); K2 on compact tables must equal K3 bit for
+     bit; the tensor-core kernels (K1, K2, K3, K5) also in bf16 at the
+     small model's widths, which the f32 reference phase does not send
      through them; K6 and K7 must equal their plain versions to 1e-6
-     in f32, their integer sums being exact; timed with CUDA events, beside
-     the bound computed from the shapes and, for v6, from the data;
+     in f32, their integer sums being exact; timed with CUDA events (the
+     span of 20 calls, the host's gaps included) and, in bf16, by the
+     device time of their launches under torch.profiler, which the kernels
+     line reports, beside the bound computed from the shapes and, for v6,
+     from the data;
   8. reference: small f32 generators (64^2, 128^2, 128^2 with
      `int8_serving` at a lowered threshold, and 128^2 in each A/B
      configuration) on the card, kernels on, against the same models on the
      CPU, where they run their plain paths; and the 640 -> 512 ConvLSTM
-     cell alone at the real int8 threshold.
+     cell alone at the real int8 threshold;
+  9. fall-through: 64^2 and 128^2 generate at conv_dim=12 in bf16, a width
+     the tensor-core and typed kernels do not take: each site takes the
+     next route (the FMA kernels of K1 and K2, K2 for the c7 head, the
+     plain typed expansion), against the f32 plain path on the CPU.
+In every full-width bf16 run of phases 3-6, K1 and K2 must take their
+tensor-core kernels (`route_launches`); the build phase holds the
+shared-memory sizes the route predicates compute in Python against the
+library's.
 The last three lines are the kernel summary (JSON), the card's name and
 power limit, and the result (JSON).
 """
@@ -106,6 +119,8 @@ VARIANTS = (
     ("head8 off, flat", {"use_head8_kernel": False, "use_compact_heads": False},
      {**PATH128, "spade_few_out_conv8": 0, K2: 2}, None),
 )
+# the wrappers that pick between a tensor-core and an FMA kernel by shape
+ROUTED = ("residual_trunk", K2)
 SWITCHES = ("use_trunk_kernel", "use_head_kernel", "use_typed_kernel", "use_apply_kernel",
             "use_head8_kernel", "use_int8_kernel")
 
@@ -125,6 +140,29 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time of fn() in ms: the summed durations of the kernels it
+    launches, from `torch.profiler` over `iters` calls. Unlike `cuda_ms` it
+    leaves out the device's idle time between launches, which for a call
+    shorter than its host overhead (K1's: a wrapper, two weight launches and
+    the kernel) is most of what the events measure."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            t = getattr(ev, "device_time_total", None)  # cuda_time_total in older PyTorch
+            us += ev.cuda_time_total if t is None else t
+    return us / 1e3 / iters
 
 
 def errors(got, want):
@@ -183,8 +221,22 @@ def launch_counts(reset: bool = False):
     if reset:
         for k in kernels.values():
             k.launches = 0
-        modes.update(dict.fromkeys(modes, 0))
+        for d in [modes] + [kernels[name].route_launches for name in ROUTED]:
+            d.update(dict.fromkeys(d, 0))
     return counts
+
+
+def route_counts():
+    """Launches of K1 and K2 by kernel ("tc": tensor cores, "fma") since the
+    last `launch_counts(reset=True)`."""
+    kernels = counted()
+    return {name: dict(kernels[name].route_launches) for name in ROUTED}
+
+
+def routes_taken(before) -> str:
+    """The kernels of K1 and K2 launched since `before` (a `route_counts()`)."""
+    now = route_counts()
+    return ", ".join(r for name in ROUTED for r, n in now[name].items() if n != before[name][r])
 
 
 def mean_rel(got, want) -> float:
@@ -210,8 +262,27 @@ def phase_build():
 
     t0 = time.perf_counter()
     path = build.build(verbose=True)
-    build.library()
+    lib = build.library()
     log(f"[build] {path.name} built and loaded in {time.perf_counter() - t0:.2f} s")
+    # the route predicates compute the tensor-core kernels' shared memory in
+    # Python, so that they need no CUDA call: it must be the library's
+    from aglayout_tpu_torch.ops import resblocks, spade_conv, typed_expand
+
+    sizes = [(resblocks.trunk_tc_smem(c)[1], lib.residual_trunk_tc_smem(c))
+             for c in (16, 32, 48, 64, 128)]
+    for h, w, k, o, f, compact in ((64, 64, 7, 3, 8, False), (128, 128, 7, 3, 16, True),
+                                   (128, 128, 7, 3, 16, False), (80, 64, 5, 4, 5, False),
+                                   (64, 64, 7, 3, 8, True), (128, 128, 3, 1, 16, True)):
+        py = spade_conv.head_tc_layout(h, w, k, o, f, compact)[1]
+        sizes.append((py, lib.spade_few_out_conv_tc_smem(h, w, k, o, f, int(compact))))
+        if compact:
+            sizes.append((py, lib.spade_few_out_conv8_smem(h, w, k, o, f)))
+    sizes += [(typed_expand.typed_tc_smem(c2, c4, s3), lib.typed_c3_expand_smem(c2, c4, s3))
+              for c2, c4, s3 in ((128, 256, 32), (32, 64, 32), (176, 64, 16))]
+    if any(py != c for py, c in sizes):
+        raise AssertionError(f"shared memory, Python against the library: {sizes}")
+    log(f"[build] the tensor-core kernels' shared memory: Python's sizes equal the library's "
+        f"({len(sizes)} shapes)")
 
 
 def phase_generate(size: int, expect, smi: str, iters: int = 10, label: str = "", against=None,
@@ -237,16 +308,21 @@ def phase_generate(size: int, expect, smi: str, iters: int = 10, label: str = ""
     launch_counts(reset=True)
     img_on = model.generate(*ins)
     torch.cuda.synchronize()
-    launches = launch_counts()
+    launches, routes = launch_counts(), route_counts()
     switch(False)
     img_off = model.generate(*ins)
     torch.cuda.synchronize()
     if launch_counts() != launches:
         raise AssertionError("a kernel launched with its switch off")
-    log(f"[{tag}] launches with the kernels on: {launches}")
+    log(f"[{tag}] launches with the kernels on: {launches}; K1 and K2 by kernel: {routes}")
     wrong = {name: n for name, n in launches.items() if n != expect.get(name, 0)}
     if wrong:
         raise AssertionError(f"{tag}: launches {wrong}, expected {expect}")
+    # at the published widths in bf16 every K1 and K2 launch takes the tensor cores
+    tc = {"residual_trunk": {"tc": launches["residual_trunk"], "fma": 0},
+          K2: {"tc": launches[K2] + launches[K2C], "fma": 0}}
+    if routes != tc:
+        raise AssertionError(f"{tag}: K1 and K2 took {routes}, expected {tc}")
     for name, img in (("on", img_on), ("off", img_off)):
         if img.shape != (B, size, size, 3) or not torch.isfinite(img.float()).all():
             raise AssertionError(f"kernels-{name} output: shape {tuple(img.shape)} or non-finite")
@@ -491,33 +567,45 @@ def phase_kernels(model64, model128, model_int8):
             set_tf32(dt != torch.float32)
             with torch.no_grad():
                 args = make(dt)
+                before = route_counts()
                 got, want = kernel(*args), plain(*args)
                 torch.cuda.synchronize()
+                taken = routes_taken(before)
                 err, rel = errors(got, want)
+                if name == K2C and dt == torch.bfloat16:
+                    # the same kernel as K3 (csrc/spade_head_tc.cuh): the same bits
+                    if not torch.equal(got, k["spade_few_out_conv8"](*args, 16)):
+                        raise AssertionError("K2 on compact tables differs from K3")
+                    log(f"[kernel] {K2C} bf16 equals spade_few_out_conv8 bit for bit")
                 ms_plain_a = cuda_ms(lambda: plain(*args))
                 ms_a = cuda_ms(lambda: kernel(*args))
                 ms_b = cuda_ms(lambda: kernel(*args))
                 ms_plain_b = cuda_ms(lambda: plain(*args))
+                on_device = device_ms(lambda: kernel(*args)) if dt == torch.bfloat16 else None
             ms, ms_plain = (ms_a + ms_b) / 2, (ms_plain_a + ms_plain_b) / 2
             limit = 1e-6 if name in exact and dt == torch.float32 else tol[dt]
             log(f"[kernel] {name} {str(dt)[6:]}: shape {tuple(got.shape)}, max abs err {err:.3e}, "
-                f"rel {rel:.3e} (tol {limit:.0e}); kernel {ms:.4f} ms, plain {ms_plain:.4f} ms "
-                f"(runs {ms_a:.4f}/{ms_b:.4f} vs {ms_plain_a:.4f}/{ms_plain_b:.4f})")
+                f"rel {rel:.3e} (tol {limit:.0e}); kernel{' (' + taken + ')' if taken else ''} "
+                f"{ms:.4f} ms, plain {ms_plain:.4f} ms "
+                f"(runs {ms_a:.4f}/{ms_b:.4f} vs {ms_plain_a:.4f}/{ms_plain_b:.4f})"
+                f"{'' if on_device is None else f'; kernel on the device {on_device:.4f} ms'}")
             if not torch.isfinite(got.float()).all() or rel > limit:
                 raise AssertionError(f"{name} {dt}: kernel disagrees with its plain version")
             if dt == torch.bfloat16:
                 bound_ms, bound_by = bound(args, got, *work(args))
                 log(f"[kernel] {name} bf16: bound {bound_ms:.4f} ms by {bound_by}, "
-                    f"kernel / bound {ms / bound_ms:.1f}")
+                    f"kernel on the device / bound {on_device / bound_ms:.1f}")
                 if name not in SOURCES:  # K2 at the c7 shape
-                    rows[K2].update(c7_ms=ms, c7_plain_ms=ms_plain, c7_bound_ms=bound_ms)
+                    rows[K2].update(c7_ms=on_device, c7_plain_ms=ms_plain, c7_bound_ms=bound_ms)
                     continue
                 source, replaces = SOURCES[name]
                 # library_ms: no single PyTorch call computes any of these
                 # functions (each fuses an affine, a relu, a quantisation or
                 # a gather with its conv), so there is nothing to time
+                # ms: the call's time on the device (the kernel and its weight
+                # launches), not the events' span, which holds the host's gaps
                 rows[name] = {"name": name, "route": "cuda", "source": source,
-                              "replaces": replaces, "max_abs_err": err, "ms": ms,
+                              "replaces": replaces, "max_abs_err": err, "ms": on_device,
                               "plain_ms": ms_plain, "bound_ms": bound_ms, "bound_by": bound_by,
                               "library_ms": None}
                 # the dense routes the int8 kernels compete with (other
@@ -537,28 +625,39 @@ def phase_kernels(model64, model128, model_int8):
 
 
 def phase_kernels_small(k, gen, dev, limit: float):
-    """K3 and K5 in bf16 at the widths of the small reference model
-    (conv_dim=16: C = 32 at the c7 head, c2 = 32, c4 = 64), which generate
-    reaches in f32 only, where both run their FMA kernels."""
-    from aglayout_tpu_torch.ops.spade_conv import spade_few_out_conv8_plain
+    """The tensor-core kernels in bf16 at the widths of the small reference
+    model (conv_dim=16: C = 16 in the trunk and the c4 head, 32 at the c7
+    head, c2 = 32, c4 = 64), which generate reaches in f32 only, where they
+    run their FMA kernels: K1, K2, K3, K5."""
+    from aglayout_tpu_torch.ops.resblocks import residual_trunk_plain
+    from aglayout_tpu_torch.ops.spade_conv import spade_few_out_conv8_plain, spade_few_out_conv_plain
     from aglayout_tpu_torch.ops.typed_expand import typed_c3_expand_plain
 
     dt = torch.bfloat16
     rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
     i32 = lambda hi, shape: torch.randint(0, hi, shape, generator=gen, dtype=torch.int32).to(dev)  # noqa: E731
+    trunk = (rnd(3, 16, 8, 8).to(dt), *(0.08 * rnd(2, 16, 16, 3, 3) for _ in range(2)),
+             *(torch.stack([1 + 0.1 * rnd(2, 16), 0.1 * rnd(2, 16)], 1) for _ in range(2)))
+    flat = [(s + 0.3 * rnd(3, 8, 5, 16, 64)).to(dt) for s in (1.0, 0.0)]
+    head4 = (rnd(3, 16, 64, 64).to(dt), *flat, 0.05 * rnd(3, 16, 7, 7), rnd(3), 8)
     tabs = [(s + 0.3 * rnd(3, 8, 5, 32, 40)).to(dt) for s in (1.0, 0.0)]
     head = (rnd(3, 32, 128, 128).to(dt), *tabs, 0.05 * rnd(3, 32, 7, 7), rnd(3), 16)
     n = 9
     typed = (rnd(n, 12, 12, 32).to(dt), i32(13, (n, 14, 4)), i32(14, (n, 14, 4)), i32(14, (n, 32)),
              i32(14, (n, 32)), 0.5 * rnd(n, 2, 64), 0.05 * rnd(64, 32, 4, 4))
-    for name, plain, args in (("spade_few_out_conv8", spade_few_out_conv8_plain, head),
+    for name, plain, args in (("residual_trunk", residual_trunk_plain, trunk),
+                              (K2, spade_few_out_conv_plain, head4),
+                              ("spade_few_out_conv8", spade_few_out_conv8_plain, head),
                               ("typed_c3_expand", typed_c3_expand_plain, typed)):
+        before = route_counts()
         with torch.no_grad():
             err, rel = errors(k[name](*args), plain(*args))
-        log(f"[kernel] {name} bf16 at the small model's widths: max abs err {err:.3e}, "
-            f"rel {rel:.3e} (tol {limit:.0e})")
-        if rel > limit:
-            raise AssertionError(f"{name}: the small-width kernel disagrees with its plain version")
+        taken = routes_taken(before)
+        log(f"[kernel] {name} bf16 at the small model's widths{' (' + taken + ')' if taken else ''}: "
+            f"max abs err {err:.3e}, rel {rel:.3e} (tol {limit:.0e})")
+        if rel > limit or taken not in ("", "tc"):
+            raise AssertionError(f"{name}: the small-width kernel disagrees with its plain version "
+                                 "or took its FMA kernel")
 
 
 def phase_reference(size: int, expect, int8: bool = False, **cfg_kw):
@@ -630,6 +729,66 @@ def phase_reference_cell():
         raise AssertionError("the card's int8 cell disagrees with the CPU")
 
 
+def phase_fallthrough(size: int):
+    """Generate at conv_dim=12 on the card (the other widths the published
+    ones, B=4). In bf16 the tensor-core kernels want C % 16 == 0 and the
+    typed ones c2 % 16 == 0, so each site takes the next route its
+    predicates give, and no wrapper raises; the image is held against the
+    same model with the kernels off and against the f32 plain path on the
+    CPU. At this width bf16's roundings weigh more than at the published
+    one (at 64^2, 1.2e-2 in mean from either, against 7.4e-3 and 5.6e-3 at
+    conv_dim=64), so the mean limit is the 128^2 one, 3e-2, at both sizes.
+    In f32 (TF32 off) the same model on the card, through the FMA kernels,
+    against the CPU: 1e-4."""
+    from aglayout_tpu_torch.bench import layouts
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.models import build_generator
+
+    expect = {"residual_trunk": 1, K2: 1}
+    expect32 = dict(expect)
+    if size == 128:
+        expect.update({K2C: 1, "spade_apply8": 1})  # K3 and the typed kernels do not take C = 24
+        expect32.update({"spade_few_out_conv8": 1, "spade_apply8": 1})  # K3's f32 kernel does
+    fma = {"residual_trunk": {"tc": 0, "fma": 1}, K2: {"tc": 0, "fma": 1 + (size == 128)}}
+    cfg = config_for(size, conv_dim=12, bf16=True)
+    ins = layouts(cfg, 4, O, seed=3, device="cpu")
+    tag = f"[fall-through {size}] conv_dim=12"
+    ran = lambda: {n: c for n, c in launch_counts().items() if c}  # noqa: E731
+    with torch.no_grad():
+        model = build_generator(cfg, "cuda", seed=3)
+        launch_counts(reset=True)
+        img_on = model.generate(*(t.cuda() for t in ins))
+        torch.cuda.synchronize()
+        launches, routes = ran(), route_counts()
+        set_kernels(model, False)
+        img_off = model.generate(*(t.cuda() for t in ins))
+        want = build_generator(config_for(size, conv_dim=12), "cpu", seed=3).generate(*ins)
+        set_tf32(False)
+        launch_counts(reset=True)
+        img32 = build_generator(config_for(size, conv_dim=12), "cuda", seed=3).generate(
+            *(t.cuda() for t in ins)).cpu()
+        launches32 = ran()
+        set_tf32(True)
+    log(f"{tag} bf16: launches {launches}, K1 and K2 by kernel {routes}; f32: launches {launches32}")
+    if launches != expect or routes != fma or launches32 != expect32:
+        raise AssertionError(f"fall-through {size}: expected launches {expect}, routes {fma}, "
+                             f"and in f32 {expect32}")
+    img_on, img_off = img_on.float().cpu(), img_off.float().cpu()
+    if img_on.shape != (4, size, size, 3) or not torch.isfinite(img_on).all():
+        raise AssertionError(f"fall-through {size}: output shape {tuple(img_on.shape)} or non-finite")
+    for name, got, ref, max_tol, mean_tol in (
+            ("bf16 on vs off", img_on, img_off, 5e-2, 3e-2),
+            ("bf16 on vs f32 on the CPU", img_on, want, 5e-2, 3e-2),
+            ("bf16 off vs f32 on the CPU", img_off, want, 5e-2, 3e-2),
+            ("f32 on the card vs the CPU", img32, want, 1e-4, 1e-4)):
+        err, rel = errors(got, ref)
+        mrel = mean_rel(got, ref)
+        log(f"{tag} {name}: max abs err {err:.3e}, rel {rel:.3e} (tol {max_tol:.0e}), mean rel "
+            f"{mrel:.3e} (tol {mean_tol:.0e})")
+        if rel > max_tol or mrel > mean_tol:
+            raise AssertionError(f"fall-through {size}: {name} disagree")
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -654,6 +813,8 @@ def main() -> int:
         if name:  # once with v5, once with v6, once with head8 off
             phase_reference(128, expect, **cfg_kw)
     phase_reference_cell()
+    phase_fallthrough(64)
+    phase_fallthrough(128)
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

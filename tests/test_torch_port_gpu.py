@@ -527,3 +527,168 @@ def test_redesigned_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="bytes of shared memory"):
         typed_c3_expand(*args)
     assert launches == (spade_few_out_conv8.launches, typed_c3_expand.launches)
+
+
+# ---- K1 and K2 on the tensor cores, and the routes that fall through by shape
+
+
+def _trunk_case(cuda, b, c, r, seed):
+    g = torch.Generator().manual_seed(seed)
+    h = torch.randn(b, c, 8, 8, generator=g).to(cuda, torch.bfloat16)
+    w1, w2 = (torch.randn(r, c, c, 3, 3, generator=g).div(3 * c ** 0.5).to(cuda) for _ in range(2))
+    ab1, ab2 = (torch.stack([1 + 0.1 * torch.randn(r, c, generator=g),
+                             0.1 * torch.randn(r, c, generator=g)], 1).to(cuda) for _ in range(2))
+    return h, w1, w2, ab1, ab2
+
+
+def _route_delta(kernel, before):
+    return {k: n - before[k] for k, n in kernel.route_launches.items() if n != before[k]}
+
+
+# odd batches; every C of the published models' trunks and the small ones'
+@pytest.mark.parametrize("b,c,r", [(5, 16, 2), (3, 32, 2), (7, 64, 6), (3, 128, 2), (1, 48, 1)])
+def test_trunk_tc_kernel_matches_plain(cuda, b, c, r):
+    args = _trunk_case(cuda, b, c, r, seed=30 + c)
+    before = dict(residual_trunk.route_launches)
+    got = residual_trunk(*args)
+    assert _route_delta(residual_trunk, before) == {"tc": 1}
+    assert got.shape == (b, c, 8, 8) and got.dtype == torch.float32
+    assert _rel(got, residual_trunk_plain(*args)) < TOL["bf16"]
+
+
+def test_trunk_tc_kernel_twice_on_a_side_stream(cuda):
+    """Two launches back to back on another stream: the weight ring's
+    barriers start anew in the second."""
+    args = _trunk_case(cuda, 130, 64, 6, seed=31)
+    want = residual_trunk_plain(*args)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = residual_trunk(*args)
+        second = residual_trunk(*args)
+    side.synchronize()
+    assert torch.equal(first, second) and _rel(first, want) < TOL["bf16"]
+
+
+def _flat_case(cuda, b, c, size, seed):
+    x, a_tab, b_tab, g = _compact_case(cuda, "bf16", b, c, size, seed)
+    f = size // 8
+    return x, *(compact_to_flat(t, f).contiguous() for t in (a_tab, b_tab)), g
+
+
+# the c4 head (64 columns, f = 8) at odd batches, C of the small and the
+# published models; the c7 head's shape (128 columns, f = 16) in both modes
+@pytest.mark.parametrize("b,c,size,compact", [(5, 16, 64, False), (3, 32, 64, False),
+                                              (3, 64, 64, False), (2, 128, 64, False),
+                                              (3, 128, 128, False), (3, 128, 128, True),
+                                              (5, 32, 128, True), (3, 64, 128, False)])
+def test_head_tc_kernel_matches_plain(cuda, b, c, size, compact):
+    case = _compact_case if compact else _flat_case
+    x, a_tab, b_tab, g = (case(cuda, "bf16", b, c, size, seed=32) if compact
+                          else case(cuda, b, c, size, seed=32))
+    f = size // 8
+    weight = torch.randn(3, c, 7, 7, generator=g).mul(0.02).to(cuda)
+    bias = torch.randn(3, generator=g).to(cuda)
+    before = dict(spade_few_out_conv.route_launches)
+    got = spade_few_out_conv(x, a_tab, b_tab, weight, bias, f, compact=compact)
+    want = spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f, compact=compact)
+    assert _route_delta(spade_few_out_conv, before) == {"tc": 1}
+    edge = _border(size, size, 3)
+    assert got.shape == (b, 3, size, size) and _rel(got, want) < TOL["bf16"]
+    assert _rel(got[..., edge], want[..., edge]) < TOL["bf16"]
+
+
+def test_head_tc_kernel_twice_on_a_side_stream(cuda):
+    x, a_tab, b_tab, g = _flat_case(cuda, 6, 64, 64, seed=33)
+    weight = torch.randn(3, 64, 7, 7, generator=g).mul(0.02).to(cuda)
+    want = spade_few_out_conv_plain(x, a_tab, b_tab, weight, None, 8)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        first = spade_few_out_conv(x, a_tab, b_tab, weight, None, 8)
+        second = spade_few_out_conv(x, a_tab, b_tab, weight, None, 8)
+    side.synchronize()
+    assert torch.equal(first, second) and _rel(first, want) < TOL["bf16"]
+
+
+@pytest.mark.parametrize("b,c,size", [(3, 128, 128), (2, 48, 64)])
+def test_head_compact_equals_head8_bit_for_bit(cuda, b, c, size):
+    """K2 on compact tables runs K3's very kernel: the same bits."""
+    x, a_tab, b_tab, g = _compact_case(cuda, "bf16", b, c, size, seed=34)
+    weight = torch.randn(3, c, 7, 7, generator=g).mul(0.02).to(cuda)
+    bias = torch.randn(3, generator=g).to(cuda)
+    f = size // 8
+    k2 = spade_few_out_conv(x, a_tab, b_tab, weight, bias, f, compact=True)
+    assert torch.equal(k2, spade_few_out_conv8(x, a_tab, b_tab, weight, bias, f))
+
+
+def _generate_inputs(cfg, b, o, seed):
+    from aglayout_tpu_torch.bench import layouts
+
+    return layouts(cfg, b, o, seed=seed, device="cpu")
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_default_generate_takes_the_tensor_core_routes(cuda, size):
+    """The default configuration at the published widths, bf16: K1 and K2
+    launch on the tensor cores, once each."""
+    cfg = config_for(size, bf16=True)
+    ins = _generate_inputs(cfg, 2, 4, seed=4)
+    model = build_generator(cfg, cuda, seed=0)
+    before = (dict(residual_trunk.route_launches), dict(spade_few_out_conv.route_launches))
+    img = model.generate(*(t.to(cuda) for t in ins))
+    assert _route_delta(residual_trunk, before[0]) == {"tc": 1}
+    assert _route_delta(spade_few_out_conv, before[1]) == {"tc": 1}
+    assert img.shape == (2, size, size, 3) and torch.isfinite(img.float()).all()
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_generate_at_conv_dim_12_falls_through(cuda, size):
+    """conv_dim = 12, bf16: no tensor-core kernel takes C % 16 != 0, nor the
+    typed kernels c2 = 24; each site takes the next route (the FMA kernels,
+    K2 for the c7 head, the plain typed expansion). The image agrees with
+    the kernels-off path on the card, and with the f32 plain path on the
+    CPU within bf16's limits at this width (chip_smoke's fall-through
+    phase)."""
+    small = dict(conv_dim=12, clstm_layers=2, resi_num=2, num_classes=23)
+    cfg = config_for(size, bf16=True, **small)
+    ins = _generate_inputs(cfg, 3, 4, seed=5)
+    model = build_generator(cfg, cuda, seed=1)
+    counters = (residual_trunk, spade_few_out_conv, spade_few_out_conv8, typed_c3_expand)
+    before = [dict(getattr(k, "route_launches", {"all": k.launches})) for k in counters]
+    got = model.generate(*(t.to(cuda) for t in ins)).float().cpu()
+    after = [dict(getattr(k, "route_launches", {"all": k.launches})) for k in counters]
+    for owner in model.modules():
+        for name in ("use_trunk_kernel", "use_head_kernel", "use_typed_kernel", "use_apply_kernel",
+                     "use_head8_kernel"):
+            if hasattr(owner, name):
+                setattr(owner, name, False)
+    off = model.generate(*(t.to(cuda) for t in ins)).float().cpu()
+    want = build_generator(config_for(size, **small), "cpu", seed=1).generate(*ins)
+    ran = [{r: n - b[r] for r, n in a.items() if n != b[r]} for a, b in zip(after, before)]
+    assert ran == [{"fma": 1}, {"fma": 1 if size == 64 else 2}, {}, {}]
+    mean_rel = lambda a, b: ((a - b).abs().mean() / b.abs().mean()).item()  # noqa: E731
+    # bf16 weighs more at this width: the mean limit is the 128^2 one at both sizes
+    assert _rel(got, off) < 5e-2 and mean_rel(got, off) < 3e-2
+    assert _rel(got, want) < 5e-2 and mean_rel(got, want) < 3e-2
+
+
+def test_tc_wrappers_raise_on_what_no_kernel_takes(cuda):
+    """On a CUDA tensor K1 and K2 launch one of their kernels or raise."""
+    launches = (residual_trunk.launches, spade_few_out_conv.launches)
+    h = torch.zeros(2, 6, 8, 8, device=cuda)  # C % 4: neither trunk kernel
+    w = torch.zeros(1, 6, 6, 3, 3, device=cuda)
+    ab = torch.zeros(1, 2, 6, device=cuda)
+    with pytest.raises(ValueError, match="input shape"):
+        residual_trunk(h, w, w, ab, ab)
+    h = torch.zeros(2, 120, 8, 8, device=cuda, dtype=torch.bfloat16)  # tc: C % 16; fma: smem
+    w = torch.zeros(1, 120, 120, 3, 3, device=cuda)
+    ab = torch.zeros(1, 2, 120, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        residual_trunk(h, w, w, ab, ab)
+    x, a_tab, b_tab, _ = _flat_case(cuda, 1, 64, 64, seed=35)
+    with pytest.raises(ValueError, match="weight shape"):  # K = 9
+        spade_few_out_conv(x, a_tab, b_tab, torch.zeros(3, 64, 9, 9, device=cuda), None, 8)
+    with pytest.raises(ValueError, match="with f=4"):
+        spade_few_out_conv(x, a_tab, b_tab, torch.zeros(3, 64, 7, 7, device=cuda), None, 4)
+    assert launches == (residual_trunk.launches, spade_few_out_conv.launches)

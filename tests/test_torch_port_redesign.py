@@ -168,18 +168,23 @@ def test_packing_refuses_what_the_kernels_do_not_take():
 
 
 def _variants():
-    return [(kernel, name) for kernel in ("k3", "k5") for name, _ in stage_times.VARIANTS[kernel][2]]
+    return [(kernel, name) for kernel, (_, _, _, cuts) in stage_times.VARIANTS.items()
+            for name, _ in cuts]
 
 
 @pytest.mark.parametrize("kernel,name", _variants())
 def test_stage_variants_still_match_the_sources(kernel, name):
     """Every line that `stage_times` replaces to cut a stage out of a kernel
-    is still in the shipped source, and the cut changes it."""
-    source, fn, variants = stage_times.VARIANTS[kernel]
-    text = (build.CSRC / source).read_text()
-    assert f'extern "C" int {fn}(' in text and fn in build.SIGNATURES
+    is still in the shipped source it cuts (the FMA kernels the tensor-core
+    ones replaced in bf16 still ship, for f32 and other shapes), the cut
+    changes it, and the source compiled for the variant exports the kernel's
+    function."""
+    cut, compiled, fn, variants = stage_times.VARIANTS[kernel]
+    text = (build.CSRC / cut).read_text()
+    assert f'extern "C" int {fn}(' in (build.CSRC / compiled).read_text() and fn in build.SIGNATURES
+    assert cut == compiled or f'#include "{cut}"' in (build.CSRC / compiled).read_text()
     repl = dict(variants)[name]
-    cut = stage_times.patched(text, repl, name)
-    assert (cut == text) == (not repl)
+    cut_text = stage_times.patched(text, repl, name)
+    assert (cut_text == text) == (not repl)
     with pytest.raises(ValueError, match="no longer has the line"):
         stage_times.patched(text, [("a line that is not there", "")], name)
