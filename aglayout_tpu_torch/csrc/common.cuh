@@ -133,6 +133,26 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
         : "memory");
   } while (!done);
 }
+// The same two for the warps that issue wgmma, with no C++ branch between
+// their wgmmas: the wait's loop inside the asm, the arrival predicated
+// instead of a test of the lane. `stage_times k6` times the product kernel
+// with `mbar_wait` and a lane test in their place.
+__device__ __forceinline__ void mbar_wait_in_asm(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"((int)pred)
+      : "memory");
+}
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from global to
 // shared memory by the copy engine (descriptor-free cp.async.bulk); the
 // bytes count towards the current phase of `bar`. One thread asks for it.

@@ -55,6 +55,13 @@
 // bound the kernel (PERF.md has the stage times).
 // In f32 the product runs on FMAs (CC = 8), one block an object, the stages
 // one after the other: a reference path.
+// The same kernel replaces pallas_typed_expand.py::typed_c3_expand_v6, whose
+// idea is to skip a row type that no output row has (typed_c3_expand_v6, the
+// V6 instantiation): the present types' rows are compacted, so a warpgroup
+// whose 64 rows hold none only lets the weight stages pass, and the epilogue
+// sums V3 and expands along x those types alone. The rows' sums are K5's, in
+// K5's order, so the two agree bit for bit. On the layouts the 128^2 path
+// makes, an object has about 8 of the 14 types (two warpgroups of three).
 // Numerics, as the Pallas kernel: products of compute-dtype operands summed
 // in f32, W3z rounded to the compute dtype; the sum over w in f32, affine
 // and relu in f32, V3 rounded to the compute dtype; the expansion copies.
@@ -230,11 +237,35 @@ __host__ __device__ inline Layout layout(int c2, int c4, int s3) {
   return l;
 }
 
+// The row types of an object's output rows (selR) in increasing order, four
+// bits each (slot j in bits 4 j .. 4 j + 3), and their count; a type outside
+// [0, 14) is no row type. Called by whole warps: each lane reads s3 / 32 rows.
+__device__ __forceinline__ uint64_t present_types(const int* sel, int s3, int& count) {
+  unsigned m = 0;
+  for (int y = threadIdx.x & 31; y < s3; y += 32) {
+    const int a = sel[y];
+    if (a >= 0 && a < NA) m |= 1u << a;
+  }
+  m = __reduce_or_sync(0xffffffffu, m);
+  uint64_t slots = 0;
+  count = 0;
+  for (int a = 0; a < NA; ++a)
+    if (m >> a & 1) slots |= (uint64_t)a << (4 * count++);
+  return slots;
+}
+__device__ __forceinline__ int type_at(uint64_t slots, int j) { return (int)(slots >> (4 * j)) & 15; }
+
 // z2: (n, 12, 12, c2); idxR, lsel: (n, 14, 4) i32; selR, selC: (n, s3) i32;
 // ab: (n, 2, c4) f32; wp: (c4 / 32, 4 c2 / 64, 128, 64) bf16, the packed
 // weights [chunk][k slice][(w, ci)][k], k = h * c2 + c, the 16-byte pieces of
 // a row swizzled as in the ring; out: (n, c4, s3, s3). Grid: one block an SM,
 // each walking over objects blockIdx.x, blockIdx.x + gridDim.x, ...
+// V6 (typed_c3_expand_v6's schedule): W3z only for the row types the
+// object's selR names, their rows (a, l) compacted in the order of a, so
+// that a warpgroup whose 64 rows hold none of them skips the product, and
+// the epilogue sums V3 and expands along x those types alone. The row sums
+// are K5's, taken in K5's order.
+template <bool V6>
 __global__ void __launch_bounds__(THREADS, 1)
 typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __restrict__ idxR,
                           const int* __restrict__ lsel, const int* __restrict__ selR,
@@ -300,9 +331,20 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
     int it = 0, q = 0;
     for (int obj = blockIdx.x; obj < n; obj += gridDim.x) {
       agl::named_barrier(1, CT);  // every consumer is done with the previous grid
+      uint64_t types = 0;
+      int tcount = NA;
+      if constexpr (V6) types = present_types(selR + obj * s3, s3, tcount);
+      // this warpgroup's 64 rows hold a row type to multiply
+      const bool active = !V6 || 64 * (warp >> 2) < tcount * NZ;
       for (int i = tid; i < NA * KW; i += CT) {
-        const int idx = idxR[obj * NA * KW + i];
-        zrow0[i] = (idx >= 0 && idx < NZ) ? idx * NZ : -1;
+        if constexpr (V6) {  // slot j holds the j-th present type; slots past them the zero row
+          const int j = i / KW;
+          const int idx = j < tcount ? idxR[(obj * NA + type_at(types, j)) * KW + i % KW] : -1;
+          zrow0[i] = (idx >= 0 && idx < NZ) ? idx * NZ : -1;
+        } else {
+          const int idx = idxR[obj * NA * KW + i];
+          zrow0[i] = (idx >= 0 && idx < NZ) ? idx * NZ : -1;
+        }
       }
       {
         const int cv = c2 / 8;
@@ -314,6 +356,16 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
       agl::named_barrier(1, CT);
 
       for (int ch = 0; ch < nchunks; ++ch, ++q) {
+        if (!active) {  // v6: no row of this warpgroup's 64 has a type; the stages pass by
+          for (int sl = 0; sl < nslices; ++sl, ++it) {
+            agl::mbar_wait(full(it % STAGES), (it / STAGES) & 1);
+            if (lane == 0) agl::mbar_arrive(empty(it % STAGES));
+          }
+          agl::mbar_wait(wempty, (q & 1) ^ 1);
+          __syncwarp();
+          if (lane == 0) agl::mbar_arrive(wfull);
+          continue;
+        }
         float acc[64];
 #pragma unroll
         for (int i = 0; i < 64; ++i) acc[i] = 0.f;
@@ -405,6 +457,9 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
   for (int i = et; i < CC * V3A * V3B; i += ET) v3[i] = __float2bfloat16_rn(0.f);
   int q = 0, piece = 0;
   for (int obj = blockIdx.x; obj < n; obj += gridDim.x) {
+    uint64_t types = 0;
+    int tcount = NA;
+    if constexpr (V6) types = present_types(selR + obj * s3, s3, tcount);
     agl::named_barrier(2, ET);  // the previous object's planes are written: sr is free
     for (int i = et; i < NA * KW; i += ET) lsl[i] = lsel[obj * NA * KW + i];
     for (int i = et; i < s3; i += ET) {
@@ -425,15 +480,16 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
       agl::mbar_wait(wfull, q & 1);
       const T* ws = w3z;
       constexpr int ITEMS = NA * NA * (CC / 8);  // item: (a, bcol, 8 channels)
-      for (int i0 = et; i0 < ITEMS; i0 += 2 * ET) {
+      const int items = V6 ? tcount * NA * (CC / 8) : ITEMS;  // v6: a is the compact slot
+      for (int i0 = et; i0 < items; i0 += 2 * ET) {
         agl::Vec16<T> v[2][KW];
         float av[2][8], bv[2][8];
         int dst[2];
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
-          const int i = i0 + u * ET < ITEMS ? i0 + u * ET : i0;
+          const int i = i0 + u * ET < items ? i0 + u * ET : i0;
           const int cg = i % (CC / 8), bcol = (i / (CC / 8)) % NA, a = i / (CC / 8 * NA);
-          dst[u] = (cg * 8 * V3A + a) * V3B + bcol;
+          dst[u] = (cg * 8 * V3A + (V6 ? type_at(types, a) : a)) * V3B + bcol;
 #pragma unroll
           for (int w = 0; w < KW; ++w) {
             const int l = lsl[bcol * KW + w];
@@ -449,7 +505,7 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
         }
 #pragma unroll
         for (int u = 0; u < 2; ++u)
-          if (i0 + u * ET < ITEMS)
+          if (i0 + u * ET < items)
 #pragma unroll
             for (int e = 0; e < 8; ++e) {
               float sum = 0.f;
@@ -463,11 +519,21 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
       if (et == 0) agl::mbar_arrive(wempty);
       // the chunk's row types (ci, a), a = 14 the zero row, along x: row j of
       // `erows` is V3 row j gathered at this thread's columns
-      for (int j = et / xv; j < CC * V3A; j += rstep * U) {
+      // (v6: the present types and the zero row only, jc = slot * CC + ci)
+      const int nrows = V6 ? CC * (tcount + 1) : CC * V3A;
+      auto vrow = [&](int jc) {
+        if constexpr (V6) {
+          const int slot = jc / CC;
+          return (jc % CC) * V3A + (slot < tcount ? type_at(types, slot) : NA);
+        } else {
+          return jc;
+        }
+      };
+      for (int j = et / xv; j < nrows; j += rstep * U) {
         uint4 v[U];
 #pragma unroll
         for (int u = 0; u < U; ++u) {
-          const int ju = j + u * rstep < CC * V3A ? j + u * rstep : j;
+          const int ju = vrow(j + u * rstep < nrows ? j + u * rstep : j);
           const char* src = reinterpret_cast<const char*>(v3) + ju * (V3B * 2);
           T g[8];
 #pragma unroll
@@ -476,8 +542,8 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
         }
 #pragma unroll
         for (int u = 0; u < U; ++u)
-          if (j + u * rstep < CC * V3A)
-            *reinterpret_cast<uint4*>(erows + ((j + u * rstep) * s3 + x8 * 8) * 2) = v[u];
+          if (j + u * rstep < nrows)
+            *reinterpret_cast<uint4*>(erows + (vrow(j + u * rstep) * s3 + x8 * 8) * 2) = v[u];
       }
       for (int c0 = 0; c0 < CC; c0 += sch, ++piece) {
         char* plane = reinterpret_cast<char*>(smem + L.rows + (piece & 1) * PLANE_BYTES);
@@ -510,6 +576,7 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
   if (et == 0) agl::bulk_wait_read<0>();  // the copy engine is done with this block's shared memory
 }
 
+template <bool V6>
 cudaError_t launch(const void* z2, const void* idxR, const void* lsel, const void* selR,
                    const void* selC, const void* ab, const void* wp, void* out, int n, int c2,
                    int c4, int s3, cudaStream_t stream) {
@@ -520,10 +587,10 @@ cudaError_t launch(const void* z2, const void* idxR, const void* lsel, const voi
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
   const int smem = layout(c2, c4, s3).total;
-  err = cudaFuncSetAttribute(typed_c3_expand_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  err = cudaFuncSetAttribute(typed_c3_expand_tc_kernel<V6>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  typed_c3_expand_tc_kernel<<<n < sms ? n : sms, THREADS, smem, stream>>>(
+  typed_c3_expand_tc_kernel<V6><<<n < sms ? n : sms, THREADS, smem, stream>>>(
       static_cast<const T*>(z2), static_cast<const int*>(idxR), static_cast<const int*>(lsel),
       static_cast<const int*>(selR), static_cast<const int*>(selC), static_cast<const float*>(ab),
       static_cast<const T*>(wp), static_cast<T*>(out), n, c2, c4, s3);
@@ -543,7 +610,21 @@ extern "C" int typed_c3_expand(const void* z2, const void* idxR, const void* lse
                                void* out, int n, int c2, int c4, int s3, int is_bf16,
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return (int)tc::launch(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, s);
+  if (is_bf16)
+    return (int)tc::launch<false>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, s);
+  return (int)launch<float>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, s);
+}
+
+// typed_c3_expand_v6: the same function and arguments; in bf16 the kernel
+// above with the V6 schedule (the row types selR names alone), in f32 the
+// FMA reference kernel, which has nothing to skip that counts.
+extern "C" int typed_c3_expand_v6(const void* z2, const void* idxR, const void* lsel,
+                                  const void* selR, const void* selC, const void* ab,
+                                  const void* wk, void* out, int n, int c2, int c4, int s3,
+                                  int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return (int)tc::launch<true>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, s);
   return (int)launch<float>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, s);
 }
 

@@ -6,8 +6,9 @@ an invalid slot carries h and c through unchanged, so the final state is
 the reference's state after its last real object. The 5x5 gate conv is
 `F.conv2d`, as the JAX package leaves it to XLA, except under the opt-in
 `int8_serving`, where a wide cell's conv goes through
-`ops/conv8_int8.conv_small_int8` (the CUDA kernel for CUDA tensors with
-`use_int8_kernel`, its plain version otherwise).
+`ops/conv8_int8.conv_small_int8`: the CUDA kernel for CUDA tensors where
+`ConvLSTMCell.int8_route` says it takes the shapes, its plain version
+otherwise.
 """
 
 from __future__ import annotations
@@ -18,7 +19,13 @@ import torch
 import torch.nn as nn
 
 from aglayout_tpu_torch.models.layers import Conv2d
-from aglayout_tpu_torch.ops.conv8_int8 import conv_small_int8, conv_small_int8_plain
+from aglayout_tpu_torch.ops.conv8_int8 import (
+    conv_small_int8,
+    conv_small_int8_plain,
+    conv_small_int8_supports,
+    conv_small_int8_takes_weights,
+    pack_conv_small_int8_weights,
+)
 from aglayout_tpu_torch.ops.int8 import quantize_conv_weights
 
 # the int8 gate conv engages only at or above this cin * cout (JAX
@@ -53,17 +60,42 @@ class ConvLSTMCell(nn.Module):
         conv = self.conv
         return self.int8_serving and conv.in_channels * conv.out_channels >= _INT8_MIN_CINCOUT
 
+    def int8_route(self, inp) -> str:
+        """The int8 gate conv of an engaged cell on its input inp = cat(x,
+        h) (B, Cin, H, W): "kernel" where `conv_small_int8`'s kernel takes
+        the shapes and dtype (`use_int8_kernel` on), else "plain"
+        (`conv_small_int8_plain`). A pure function of shapes: the caller
+        takes the kernel for CUDA tensors only."""
+        conv = self.conv
+        k = conv.kernel_size[0]
+        wq_shape = (conv.out_channels, k, k, conv.in_channels)
+        if (self.use_int8_kernel and inp.dtype in (torch.bfloat16, torch.float32)
+                and conv_small_int8_supports(tuple(inp.shape), wq_shape, k)):
+            return "kernel"
+        return "plain"
+
     def quantized_weights(self):
-        """(wq, sw) of the gate conv under the int8 route, else None. They do
-        not change over the object slots: `LayoutFuser` takes them once."""
-        return quantize_conv_weights(self.conv.weight) if self.int8_engaged else None
+        """(wq, sw, wp) of the gate conv under the int8 route, else None. wp
+        is wq packed for the kernel (`pack_conv_small_int8_weights`) where
+        the kernel can run: CUDA weights of a shape it takes, with
+        `use_int8_kernel` on; else None. They do not change over the object
+        slots: `LayoutFuser` takes them once a forward."""
+        if not self.int8_engaged:
+            return None
+        wq, sw = quantize_conv_weights(self.conv.weight)
+        packs = (self.use_int8_kernel and wq.is_cuda
+                 and conv_small_int8_takes_weights(tuple(wq.shape), self.conv.kernel_size[0]))
+        return wq, sw, pack_conv_small_int8_weights(wq) if packs else None
 
     def forward(self, x, h, c, quantized=None):
         inp = torch.cat([x, h], dim=1)
         if self.int8_engaged:
-            wq, sw = quantized or self.quantized_weights()
-            conv = conv_small_int8 if self.use_int8_kernel and inp.is_cuda else conv_small_int8_plain
-            z = conv(inp.contiguous(), wq, sw, k=self.conv.kernel_size[0])
+            k = self.conv.kernel_size[0]
+            wq, sw, wp = quantized or self.quantized_weights()
+            if inp.is_cuda and self.int8_route(inp) == "kernel":
+                z = conv_small_int8(inp.contiguous(), wq, sw, k=k, packed=wp)
+            else:
+                z = conv_small_int8_plain(inp, wq, sw, k=k)
             z = z + self.conv.bias.to(z.dtype).view(1, -1, 1, 1)
         else:
             z = self.conv(inp)
@@ -96,8 +128,8 @@ class LayoutFuser(nn.Module):
             (x.new_zeros((b, hd, h, w), dtype=dt), x.new_zeros((b, hd, h, w), dtype=dt))
             for hd in self.hidden_dims
         ]
-        # the int8 weights, once per forward and not per slot (JAX leaves the
-        # hoisting to XLA)
+        # the int8 weights, quantised and packed for the kernel once per
+        # forward and not per slot (JAX leaves the hoisting to XLA)
         quantized = [cell.quantized_weights() for cell in self.cell_list]
         for t in range(o):
             m = valid[:, t].to(dt).view(b, 1, 1, 1)

@@ -24,8 +24,10 @@ function, each a kernel of its own here:
     the c3 weights; an op no model path calls, as in JAX;
   * `typed_c3_expand_v5` (`csrc/typed_c3_expand_v5.cu`): W3z of all objects
     as one GEMM through a device scratch, then one pass for the rest;
-  * `typed_c3_expand_v6` (`csrc/typed_c3_expand_v6.cu`): one row type at a
-    time through a small shared-memory buffer, two blocks an SM.
+  * `typed_c3_expand_v6` (`csrc/typed_c3_expand.cu`, the same kernel on
+    another schedule): W3z only for the row types an object's output rows
+    have, their rows compacted, so that a warpgroup without any skips the
+    product and the epilogue sums and expands those types alone.
 `Config.typed_c3` ("v4", "v5", "v6"; JAX reads `AGL_TYPED_C3`) picks the
 one `LayoutEncoder._typed_c2c3_eval` launches (`VARIANTS`).
 
@@ -47,7 +49,6 @@ NL = 13  # c2 types per axis of the zero-padded grid `typed_c3_expand_v3` takes
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 _CHUNK = {torch.bfloat16: 32, torch.float32: 8}  # output channels per chunk in the kernel
 _CHUNK_V5 = {torch.bfloat16: 64, torch.float32: 64}  # ... in stage 2 of `csrc/typed_c3_expand_v5.cu`
-_CHUNK_V6 = {torch.bfloat16: 16, torch.float32: 8}  # ... in `csrc/typed_c3_expand_v6.cu`
 
 
 def typed_c3_inputs_from_windows(idxR, winKC, sel3R, sel3C):
@@ -192,8 +193,27 @@ def typed_c3_expand_v5_supports(z2, weight, s3: int) -> bool:
 
 
 def typed_c3_expand_v6_supports(z2, weight, s3: int) -> bool:
-    """The same for `typed_c3_expand_v6`: c4 % 16 == 0 in bf16, % 8 in f32."""
-    return _shapes_ok(z2, weight, s3, NZ, 16, _CHUNK_V6)
+    """The same for `typed_c3_expand_v6`, which runs `typed_c3_expand`'s
+    kernel: its limits."""
+    return typed_c3_expand_supports(z2, weight, s3)
+
+
+def present_row_types(selR):
+    """The v6 schedule's rows, object by object, as the kernel compacts
+    them: (types (n, 14) int64, the row types each object's output rows
+    name in increasing order, padded with -1; counts (n,); W3z rows (n,),
+    12 a type, padded to the next multiple of 64, the warpgroups' rows). A
+    type outside [0, 14) names no row type (its rows are zeros)."""
+    sel = selR.long()
+    n = sel.shape[0]
+    present = torch.zeros(n, NA + 1, dtype=torch.bool, device=sel.device)
+    present.scatter_(1, torch.where((sel >= 0) & (sel < NA), sel, NA), True)
+    present = present[:, :NA]
+    counts = present.sum(1)
+    ar = torch.arange(NA, device=sel.device).expand(n, NA)
+    types = torch.where(present, ar, NA).sort(1).values
+    types = torch.where(types < NA, types, -1)
+    return types, counts, (counts * NZ + 63) // 64 * 64
 
 
 def _launch(fn, z2, idxR, lsel, selR, selC, ab, wk, out, *tail):
@@ -249,6 +269,26 @@ def unpack_typed_c3_weights(packed):
     return wk.permute(0, 2, 4, 3, 1).reshape(nch * 32, c2, 4, 4)
 
 
+def _typed_tc(name, z2, idxR, lsel, selR, selC, ab, weight):
+    """The launch shared by `typed_c3_expand` and `typed_c3_expand_v6`, the
+    two schedules of the kernel of `csrc/typed_c3_expand.cu`."""
+    n, c2, c4, s3 = _check(name, z2, idxR, lsel, selR, selC, ab, weight)
+    if z2.dtype == torch.bfloat16:
+        if s3 not in (8, 16, 32, 64):
+            raise ValueError(f"{name}: the bf16 kernel takes s3 in (8, 16, 32, 64) (its "
+                             f"epilogue's shifts and 16 KB output pieces), got s3={s3}")
+        smem = typed_tc_smem(c2, c4, s3)
+        if smem > build.SMEM_LIMIT:
+            raise ValueError(f"{name}: c2={c2}, c4={c4}, s3={s3} needs {smem} bytes of "
+                             f"shared memory, a block has {build.SMEM_LIMIT}")
+        wk = pack_typed_c3_weights(weight, z2.dtype)
+    else:
+        wk = weight.to(z2.dtype).permute(0, 3, 2, 1).contiguous()  # (C, w, h, c)
+    out = torch.empty((n, c4, s3, s3), dtype=z2.dtype, device=z2.device)
+    _launch(name, z2, idxR, lsel, selR, selC, ab, wk, (out.data_ptr(),), n, c2, c4, s3)
+    return out
+
+
 def typed_c3_expand(z2, idxR, lsel, selR, selC, ab, weight):
     """Typed c3 + bn3 affine + relu + expansion; see `typed_c3_expand_plain`
     for the contract (int inputs int32 here).
@@ -262,20 +302,7 @@ def typed_c3_expand(z2, idxR, lsel, selR, selC, ab, weight):
     """
     if z2.device.type == "cpu":
         return typed_c3_expand_plain(z2, idxR, lsel, selR, selC, ab, weight)
-    n, c2, c4, s3 = _check("typed_c3_expand", z2, idxR, lsel, selR, selC, ab, weight)
-    if z2.dtype == torch.bfloat16:
-        if s3 not in (8, 16, 32, 64):
-            raise ValueError(f"typed_c3_expand: the bf16 kernel takes s3 in (8, 16, 32, 64) (its "
-                             f"epilogue's shifts and 16 KB output pieces), got s3={s3}")
-        smem = typed_tc_smem(c2, c4, s3)
-        if smem > build.SMEM_LIMIT:
-            raise ValueError(f"typed_c3_expand: c2={c2}, c4={c4}, s3={s3} needs {smem} bytes of "
-                             f"shared memory, a block has {build.SMEM_LIMIT}")
-        wk = pack_typed_c3_weights(weight, z2.dtype)
-    else:
-        wk = weight.to(z2.dtype).permute(0, 3, 2, 1).contiguous()  # (C, w, h, c)
-    out = torch.empty((n, c4, s3, s3), dtype=z2.dtype, device=z2.device)
-    _launch("typed_c3_expand", z2, idxR, lsel, selR, selC, ab, wk, (out.data_ptr(),), n, c2, c4, s3)
+    out = _typed_tc("typed_c3_expand", z2, idxR, lsel, selR, selC, ab, weight)
     typed_c3_expand.launches += 1
     return out
 
@@ -356,20 +383,19 @@ typed_c3_expand_v5.launches = 0
 
 
 def typed_c3_expand_v6(z2, idxR, lsel, selR, selC, ab, weight):
-    """`typed_c3_expand`'s function one row type at a time through a small
-    reused shared-memory buffer, two blocks an SM.
+    """`typed_c3_expand`'s function on `typed_c3_expand`'s kernel, scheduled
+    by the row types: W3z only for the types each object's selR names
+    (`present_row_types`), compacted, the sums and the expansion along x of
+    those types alone. In bf16 each row is summed as `typed_c3_expand` sums
+    it, so the two agree bit for bit; in f32 it runs the FMA reference
+    kernel of `typed_c3_expand`.
 
-    A CPU tensor takes the plain version. A CUDA tensor launches
-    `csrc/typed_c3_expand_v6.cu` or raises.
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    of `csrc/typed_c3_expand.cu` or raises.
     """
     if z2.device.type == "cpu":
         return typed_c3_expand_v6_plain(z2, idxR, lsel, selR, selC, ab, weight)
-    n, c2, c4, s3 = _check("typed_c3_expand_v6", z2, idxR, lsel, selR, selC, ab, weight,
-                           chunk=_CHUNK_V6)
-    wk = weight.to(z2.dtype).permute(0, 3, 2, 1).contiguous()  # (C, w, h, c)
-    out = torch.empty((n, c4, s3, s3), dtype=z2.dtype, device=z2.device)
-    _launch("typed_c3_expand_v6", z2, idxR, lsel, selR, selC, ab, wk, (out.data_ptr(),),
-            n, c2, c4, s3)
+    out = _typed_tc("typed_c3_expand_v6", z2, idxR, lsel, selR, selC, ab, weight)
     typed_c3_expand_v6.launches += 1
     return out
 

@@ -2,11 +2,14 @@
 kernel, on one CUDA card:
 
     python3 -m aglayout_tpu_torch.profile_generate [--image_size 64|128] [--off] [--batches 5]
+        [--int8] [--typed_c3 v4|v5|v6]
 
 The full-width generator (128^2 by default; B = 128, O = 10, bf16, seeded
 weights, the serving bench's layouts), the hand-written kernels on (or,
-with `--off`, their plain versions). Two passes over `--batches` batches
-after warm-up:
+with `--off`, their plain versions), in the default configuration or the
+serving bench's `--int8` (`Config.int8_serving`: the wide ConvLSTM gate
+conv through K6) and `--typed_c3` (the typed c3 kernel) ones. Two passes
+over `--batches` batches after warm-up:
 
   * staged: every stage of `STAGES` that the model runs is wrapped so that
     the device is idle when it starts and is waited for when it ends; CUDA
@@ -32,7 +35,7 @@ STAGES = (
     ("LayoutEncoder stage 1 on boxes (64^2)", "layout_encoder", "_fused_stage1"),
     ("LayoutEncoder typed c2/c3 (+K5)", "layout_encoder", "_typed_c2c3_eval"),
     ("LayoutEncoder c4 fold + bn4", "layout_encoder", "_c4_fold"),
-    ("ConvLSTM", "layout_encoder.clstm", "forward"),
+    ("ConvLSTM (+K6 under --int8)", "layout_encoder.clstm", "forward"),
     ("residual trunk (K1)", "layout_encoder", "_trunk"),
     ("GlobalEncoder", "global_encoder", "forward"),
     ("c4 head (SPADE-3 tables + K2)", "decoder", "_head"),
@@ -124,17 +127,22 @@ def main() -> int:
     ap.add_argument("--image_size", type=int, default=128, choices=[64, 128])
     ap.add_argument("--off", action="store_true", help="the kernels' plain versions")
     ap.add_argument("--batches", type=int, default=5)
+    ap.add_argument("--int8", action="store_true", help="Config.int8_serving (bench --int8)")
+    ap.add_argument("--typed_c3", choices=["v4", "v5", "v6"], default="v4",
+                    help="the typed c3 kernel (Config.typed_c3)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     size = args.image_size
-    cfg = config_for(size, batch_size=cs.B, max_objects=cs.O, bf16=True)
+    cfg = config_for(size, batch_size=cs.B, max_objects=cs.O, bf16=True, int8_serving=args.int8,
+                     typed_c3=args.typed_c3)
     model = build_generator(cfg, "cuda", seed=0)
     cs.set_kernels(model, not args.off, cfg)
     ins = layouts(cfg, cs.B, cs.O, seed=0, device="cuda")
-    tag = f"[profile] {size}^2 B={cs.B} bf16, kernels {'off' if args.off else 'on'}, {smi}"
+    conf = (" int8" if args.int8 else "") + (f" typed {args.typed_c3}" if args.typed_c3 != "v4" else "")
+    tag = f"[profile] {size}^2 B={cs.B} bf16{conf}, kernels {'off' if args.off else 'on'}, {smi}"
     for _ in range(3):
         model.generate(*ins)
     print(f"{tag}: staged, {args.batches} batches", flush=True)

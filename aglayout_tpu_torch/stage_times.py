@@ -3,26 +3,38 @@ the RGB heads (K2 at the c4 head, K3 at the c7 head) and the typed c3
 expansion (K5), as one-off variants of a kernel with a stage cut out, timed
 on the card.
 
-    python3 -m aglayout_tpu_torch.stage_times k1 k2 k3 k5
+    python3 -m aglayout_tpu_torch.stage_times k1 k2 k3 k5 k5v6 k6
     python3 -m aglayout_tpu_torch.stage_times --csrc <an earlier csrc/> k1_fma k2_fma k3_fma k5_serial
+    python3 -m aglayout_tpu_torch.stage_times --csrc <a csrc/ before K6's wgmma kernel> k6_mma_sync
+    python3 -m aglayout_tpu_torch.stage_times --whole [--box] [--csrc <a csrc/>] k5 k5v6 k6
 
 Needs one CUDA card and `nvcc`. Each variant is the shipped source with a
 few lines replaced (a call removed, a loop bound set to 0), copied with the
 rest of `csrc/` under `build/stage_times/` (listed in `.gitignore`),
 compiled on its own and called at the shape the 128^2 serving path gives
 the kernel (B = 128, O = 10, bf16). A variant computes a wrong result; only
-its time is read (CUDA events over 20 launches, twice). The shipped kernels
-have no switch for any of this. `VARIANTS` names the replaced lines:
+its time is read (CUDA events over 20 launches, twice); the whole kernel's
+also on the device (`chip_smoke.device_ms`, its hand-written launches
+checked in the trace). `--whole` builds and times the whole kernel alone
+(an earlier csrc/ may lack the lines the cuts replace); `--box` also times
+a typed kernel, whole, on the inputs the 128^2 path makes from the serving
+bench's layouts. The shipped kernels have no switch for any
+of this. `VARIANTS` names the replaced lines:
 `tests/test_torch_port_redesign.py` holds them against the sources, so an
 edit that moves a line shows there and not on the card.
 
 `k1` cuts the tensor-core kernel of `csrc/residual_trunk.cu`; `k2` and `k3`
 the one of `csrc/spade_head_tc.cuh`, as `csrc/spade_few_out_conv.cu` builds
 it for the c4 head's flat tables and `csrc/spade_few_out_conv8.cu` for the
-c7 head's compact ones; `k5` the one of `csrc/typed_c3_expand.cu`. `k1_fma`,
+c7 head's compact ones; `k5` the one of `csrc/typed_c3_expand.cu`, and
+`k5v6` the same lines in its v6 instantiation (`typed_c3_expand_v6`, on the
+same random inputs); `k6` the three launches of `csrc/conv_small_int8.cu`
+(the two quantise passes, the wgmma product and its copies). `k1_fma`,
 `k2_fma`, `k3_fma` and `k5_serial` cut the bf16 kernels those replaced (FMAs
 on the CUDA cores; one block an object, its stages one after the other),
-read with `--csrc` from a checkout that has them.
+read with `--csrc` from a checkout that has them; `k6_mma_sync` the
+`mma.sync` kernel K6 replaced, and `k5v6_serial` the one-block-an-object
+v6 kernel K5-v6 replaced, from a `csrc/` that still has them (`EARLIER`).
 """
 
 from __future__ import annotations
@@ -75,14 +87,60 @@ K1_NO_MMA = [("          agl::mma_bf16(acc[j], a[kc], bv.x, bv.y);\n", "")]
 K1_SUM = "    for (int j = 0; j < NT; ++j) for (int e = 0; e < 4; ++e) skip[0][0] += acc[j][e];\n"
 K1_NO_EPILOGUES = [("    epilogue1(r);\n", K1_SUM), ("    epilogue2(r);\n", K1_SUM)]
 # ---- of csrc/typed_c3_expand.cu (k5)
-K5_V3 = "      for (int i0 = et; i0 < ITEMS; i0 += 2 * ET) {"
-K5_TYPES = "      for (int j = et / xv; j < CC * V3A; j += rstep * U) {"
+K5_V3 = "      for (int i0 = et; i0 < items; i0 += 2 * ET) {"
+K5_TYPES = "      for (int j = et / xv; j < nrows; j += rstep * U) {"
 K5_PIECES = "      for (int c0 = 0; c0 < CC; c0 += sch, ++piece) {"
 K5_FILL = "        for (int row = c0 * s3 + et / xv; row < (c0 + sch) * s3; row += rstep * U) {"
 K5_WGMMA = ("            wgmma_m64n128k16(acc, cur[kk], wgmma_desc_sw128(bbase + kk * 32), "
             "(sl | kk) != 0);\n")
 K5_COPY = ("          agl::bulk_copy_s2g(out + ((size_t)obj * c4 + ch * CC + c0) * s3 * s3, "
            "agl::smem_u32(plane),\n                             sch * s3 * s3 * 2);\n")
+
+K5_CUTS = [
+    ("whole kernel", []),
+    ("no V3 sums", [_zero(K5_V3)]),
+    ("no row types, no output (V3 only)", [_zero(K5_TYPES), _zero(K5_PIECES)]),
+    ("no output rows (V3 and row types)", [_zero(K5_FILL)]),
+    ("no copy to device memory", [(K5_COPY, "")]),
+    ("no epilogue work (product only)", [_zero(K5_V3), _zero(K5_TYPES), _zero(K5_PIECES)]),
+    ("no product (epilogue only)", [(K5_WGMMA, "")]),
+]
+# ---- of csrc/conv_small_int8.cu (k6: the three launches of a call)
+K6_CONV = ("  conv<<<dim3((Cout + BM - 1) / BM, groups), CONV_THREADS, smem, stream>>>(\n"
+           "      qp, static_cast<const int8_t*>(wp), static_cast<const float*>(sw), am,\n"
+           "      static_cast<T*>(out), B, nchunks, Cout, k, gb);\n")
+K6_QUANTISE = [
+    ("  absmax_kernel<T><<<dim3(splits, chunks), THREADS, 0, stream>>>(static_cast<const T*>(x), am,\n"
+     "                                                                per_chunk);\n", ""),
+    ("  quantize_kernel<T><<<dim3(nchunks, groups * IMG), THREADS, 0, stream>>>(\n"
+     "      static_cast<const T*>(x), am, qp, B, Cin, nchunks, k, gb);\n", ""),
+]
+K6_WAIT_MAP = "        agl::mbar_wait_in_asm(mfull(c % MSTAGES), (c / MSTAGES) & 1);\n"
+K6_WAIT_W = "    agl::mbar_wait_in_asm(full(wst), wph);\n"
+K6_MAPS = [_zero("    for (int c = 0; c < nchunks; ++c) {"), (K6_WAIT_MAP, "")]
+K6_NO_COPIES = K6_MAPS + [_zero("    for (int sl = 0, st = 0, ph = 0; sl < nslices; ++sl) {"),
+                          (K6_WAIT_W, "")]
+K6_WGMMA = "      wgmma_m64n256k32_s8(acc, da, db, s != 0);\n"
+K6_FREE_MAP = "      agl::mbar_arrive_if(mempty(freed % MSTAGES), lane == 0);\n"
+K6_FREE_W = "      agl::mbar_arrive_if(empty(wst == 0 ? WST - 1 : wst - 1), lane == 0);\n"
+# the consumers' waits and arrivals as the other kernels write them: a C++
+# spin loop (`mbar_wait`) and a test of the lane
+K6_PLAIN_BARRIERS = [
+    (K6_WAIT_MAP, K6_WAIT_MAP.replace("mbar_wait_in_asm", "mbar_wait")),
+    (K6_WAIT_W, K6_WAIT_W.replace("mbar_wait_in_asm", "mbar_wait")),
+    (K6_FREE_MAP, "      if (lane == 0) agl::mbar_arrive(mempty(freed % MSTAGES));\n"),
+    (K6_FREE_W, "      if (lane == 0) agl::mbar_arrive(empty(wst == 0 ? WST - 1 : wst - 1));\n"),
+]
+# ---- of the parent's csrc/conv_small_int8.cu (k6_mma_sync, with --csrc)
+K6_OLD_CONV = ("  conv_kernel<T><<<dim3(Cout / BN, (B + IM - 1) / IM), THREADS, smem, stream>>>(\n"
+               "      qp, static_cast<const int8_t*>(wq), static_cast<const float*>(sw), am,\n"
+               "      static_cast<T*>(out), B, Cp, Cout, k, gb);\n")
+K6_OLD_QUANTISE = [
+    ("  absmax_kernel<T><<<dim3(splits, chunks), THREADS, 0, stream>>>(static_cast<const T*>(x), am,\n"
+     "                                                                per_chunk);\n", ""),
+    ("  quantize_kernel<T><<<dim3(Cp / CK, B), THREADS, 0, stream>>>(static_cast<const T*>(x), am, qp,\n"
+     "                                                              Cin, Cp, k, gb);\n", ""),
+]
 
 # kernel -> (the source cut, the source compiled (which includes the cut one,
 # or is it), exported function, [(variant, [(old, new), ...]), ...])
@@ -97,14 +155,19 @@ VARIANTS = {
     ]),
     "k2": ("spade_head_tc.cuh", "spade_few_out_conv.cu", "spade_few_out_conv_tc", HEAD_CUTS),
     "k3": ("spade_head_tc.cuh", "spade_few_out_conv8.cu", "spade_few_out_conv8", HEAD_CUTS),
-    "k5": ("typed_c3_expand.cu", "typed_c3_expand.cu", "typed_c3_expand", [
-        ("whole kernel", []),
-        ("no V3 sums", [_zero(K5_V3)]),
-        ("no row types, no output (V3 only)", [_zero(K5_TYPES), _zero(K5_PIECES)]),
-        ("no output rows (V3 and row types)", [_zero(K5_FILL)]),
-        ("no copy to device memory", [(K5_COPY, "")]),
-        ("no epilogue work (product only)", [_zero(K5_V3), _zero(K5_TYPES), _zero(K5_PIECES)]),
-        ("no product (epilogue only)", [(K5_WGMMA, "")]),
+    "k5": ("typed_c3_expand.cu", "typed_c3_expand.cu", "typed_c3_expand", K5_CUTS),
+    # the v6 schedule of the same kernel: the same lines, its own instantiation
+    "k5v6": ("typed_c3_expand.cu", "typed_c3_expand.cu", "typed_c3_expand_v6", K5_CUTS),
+    "k6": ("conv_small_int8.cu", "conv_small_int8.cu", "conv_small_int8", [
+        ("whole call", []),
+        ("the two quantise passes only", [(K6_CONV, "")]),
+        ("the product kernel only (no quantise passes)", K6_QUANTISE),
+        ("product only (no copies, no quantise passes)", K6_NO_COPIES + K6_QUANTISE),
+        ("weight copies only (no product, no map copies, no quantise passes)",
+         K6_MAPS + [(K6_WGMMA, "")] + K6_QUANTISE),
+        ("no map copies (no quantise passes)", K6_MAPS + K6_QUANTISE),
+        ("the product kernel with mbar_wait and a lane test (no quantise passes)",
+         K6_PLAIN_BARRIERS + K6_QUANTISE),
     ]),
     # the bf16 kernels K1, K2, K3 and K5 replaced, from a checkout that has
     # them (--csrc): the FMA kernels of K1 and K2 still ship for f32 and the
@@ -129,6 +192,15 @@ VARIANTS = {
             _zero("    for (int i = tid; i < cc * K * K; i += THREADS)"),
             _zero("    for (int cr = warp; cr < cc * TH; cr += nwarps) {")]),
     ]),
+    # the mma.sync kernel K6 replaced: in an earlier csrc/ only (EARLIER)
+    "k6_mma_sync": ("conv_small_int8.cu", "conv_small_int8.cu", "conv_small_int8", [
+        ("whole call", []),
+        ("the two quantise passes only", [(K6_OLD_CONV, "")]),
+        ("the product kernel only (no quantise passes)", K6_OLD_QUANTISE),
+    ]),
+    # the v6 kernel K5-v6 replaced: its source is gone from this csrc/ (EARLIER)
+    "k5v6_serial": ("typed_c3_expand_v6.cu", "typed_c3_expand_v6.cu", "typed_c3_expand_v6",
+                    [("whole kernel", [])]),
     "k5_serial": ("typed_c3_expand.cu", "typed_c3_expand.cu", "typed_c3_expand", [
         ("whole kernel", []),
         ("no weight copy", [("    load_w3<CC>(wk, bs, c0, c2);\n", "")]),
@@ -138,6 +210,14 @@ VARIANTS = {
             ("    expand_store(v3, sr, sc, out + ((size_t)obj * c4 + c0) * s3 * s3, CC, s3);\n", "")]),
     ]),
 }
+
+
+# the kernels whose lines are only in an earlier csrc/ (run with --csrc), and
+# the C signature of that generation of the source
+EARLIER = {"k6_mma_sync": [build._P] * 6 + [build._I] * 7 + [build._P],
+           "k5v6_serial": build.SIGNATURES["typed_c3_expand_v6"]}
+# hand-written launches a call of the whole kernel, where more than one
+LAUNCHES = {"k6": 3, "k6_mma_sync": 3}
 
 
 def patched(text: str, repl, what: str) -> str:
@@ -163,10 +243,12 @@ def start_variant(csrc: Path, cut: str, compiled: str, tag: str, repl):
     return subprocess.Popen(cmd), lib
 
 
-def _operands(kernel: str):
+def _operands(kernel: str, box: bool = False):
     """The kernel's arguments at the shape the 128^2 serving path gives it
     (the c4 head and the trunk as at 64^2), as the C function of that
-    generation of the source takes them (tensors kept alive by the caller)."""
+    generation of the source takes them (tensors kept alive by the caller);
+    with `box` the typed kernels' inputs are those the 128^2 path makes from
+    the serving bench's layouts."""
     import torch
 
     import chip_smoke as cs
@@ -211,10 +293,31 @@ def _operands(kernel: str):
             else:
                 tail = (b, c, h, w, k, o, f, spade_conv._channel_chunk(c) if kernel == "k3_fma" else 0,
                         1, stream)
+        elif kernel.startswith("k6"):
+            import torch.nn.functional as F
+
+            from aglayout_tpu_torch.ops import conv8_int8
+            from aglayout_tpu_torch.ops.int8 import quantize_conv_weights
+
+            cell = model.layout_encoder.clstm.cell_list[0]  # 640 -> 512, 5 x 5
+            x = torch.randn(cs.B, cell.conv.in_channels, 8, 8, generator=gen).to(dev, dt)
+            wq, sw = quantize_conv_weights(cell.conv.weight)
+            b, cin, cout, k, gb = x.shape[0], x.shape[1], wq.shape[0], wq.shape[1], 16
+            cp, p = -(-cin // 32) * 32, 8 + k - 1
+            amax = torch.zeros(b // gb, dtype=torch.int32, device=dev)
+            q = torch.empty(-(-b // 8) * 8 * p * p * cp, dtype=torch.int8, device=dev)
+            out = torch.empty((b, cout, 8, 8), dtype=dt, device=dev)
+            if kernel == "k6_mma_sync":
+                keep = (x, F.pad(wq, (0, cp - cin)).contiguous(), sw, amax, q, out)
+                tail = (b, cin, cp, cout, k, gb, 1, stream)
+            else:
+                keep = (x, conv8_int8.pack_conv_small_int8_weights(wq), sw, amax, q, out)
+                tail = (b, cin, cout, k, gb, 1, stream)
         else:
-            z2, idxR, lsel, selR, selC, ab, weight = cs.typed_inputs(model, dt, gen, dev)
+            inputs = cs.box_typed_inputs(model) if box else cs.typed_inputs(model, dt, gen, dev)
+            z2, idxR, lsel, selR, selC, ab, weight = inputs
             n, c2, c4, s3 = z2.shape[0], z2.shape[-1], weight.shape[0], selR.shape[-1]
-            wk = (weight.to(dt).permute(0, 3, 2, 1).contiguous() if kernel == "k5_serial"
+            wk = (weight.to(dt).permute(0, 3, 2, 1).contiguous() if kernel.endswith("_serial")
                   else typed_expand.pack_typed_c3_weights(weight, dt))
             out = torch.empty((n, c4, s3, s3), dtype=dt, device=dev)
             keep = (z2, idxR, lsel, selR, selC, ab, wk, out)
@@ -222,33 +325,45 @@ def _operands(kernel: str):
     return keep, (*(t.data_ptr() for t in keep), *tail)
 
 
-def run(kernel: str, csrc: Path) -> dict:
-    """Time every variant of `kernel`; returns {variant: (ms, ms)}."""
+def run(kernel: str, csrc: Path, whole: bool = False, box: bool = False) -> dict:
+    """Time every variant of `kernel` (the whole kernel alone with `whole`);
+    returns {variant: (ms, ms)}, for the whole kernel (ms, ms, device ms),
+    and with `box`, for a typed kernel, the whole kernel's on the
+    box-derived inputs too."""
     import torch
 
     import chip_smoke as cs
 
     cut, compiled, fn_name, variants = VARIANTS[kernel]
+    variants = variants[:1] if whole else variants
     # every variant's nvcc at once, as the build does
     builds = [start_variant(csrc, cut, compiled, f"{kernel}_{i}", repl)
               for i, (_, repl) in enumerate(variants)]
     for proc, _ in builds:
         if proc.wait() != 0:
             raise RuntimeError(f"stage_times: a {kernel} variant failed to compile")
-    keep, args = _operands(kernel)
+    labels = [""] + ([", box-derived inputs"] if box and kernel.startswith("k5") else [])
+    operands = {label: _operands(kernel, bool(label)) for label in labels}  # label -> (keep, args)
     times = {}
-    for (name, _), (_, lib) in zip(variants, builds):
+    for i, ((name, _), (_, lib)) in enumerate(zip(variants, builds)):
         fn = getattr(ctypes.CDLL(str(lib)), fn_name)
-        fn.argtypes, fn.restype = build.SIGNATURES[fn_name], ctypes.c_int
+        fn.argtypes, fn.restype = EARLIER.get(kernel, build.SIGNATURES[fn_name]), ctypes.c_int
+        for label in labels[:1 if i else None]:  # the cuts on the random inputs only
+            args = operands[label][1]
 
-        def call():
-            build.check(fn(*args), f"{kernel} variant {name!r}")
+            def call():
+                build.check(fn(*args), f"{kernel} variant {name!r}")
 
-        call()
-        torch.cuda.synchronize()
-        times[name] = (cs.cuda_ms(call), cs.cuda_ms(call))
-        print(f"[stage_times] {kernel}: {name}: {times[name][0]:.4f} {times[name][1]:.4f} ms", flush=True)
-    del keep
+            call()
+            torch.cuda.synchronize()
+            t = (cs.cuda_ms(call), cs.cuda_ms(call))
+            line = f"[stage_times] {kernel}: {name}{label}: {t[0]:.4f} {t[1]:.4f} ms"
+            if i == 0:  # the whole kernel, uncut
+                t += (cs.device_ms(call, LAUNCHES.get(kernel, 1), csrcs=(csrc,)),)
+                line += f"; on the device {t[2]:.4f} ms"
+            times[name + label] = t
+            print(line, flush=True)
+    del operands
     return times
 
 
@@ -259,14 +374,22 @@ def main() -> int:
     ap.add_argument("kernels", nargs="+", choices=sorted(VARIANTS))
     ap.add_argument("--csrc", type=Path, default=build.CSRC,
                     help="the csrc/ directory to cut (default: this package's)")
+    ap.add_argument("--whole", action="store_true", help="the whole kernel alone, no cuts")
+    ap.add_argument("--box", action="store_true",
+                    help="also time the typed kernels on the inputs the 128^2 path makes from "
+                         "the bench's layouts")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("stage_times: needs a CUDA card")
+    earlier = sorted(set(args.kernels) & set(EARLIER))
+    if earlier and args.csrc == build.CSRC:
+        raise SystemExit(f"stage_times: {earlier} need --csrc of a checkout that has them")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[stage_times] {smi}; B=128, O=10, bf16; CUDA events, 20 launches, twice", flush=True)
+    print(f"[stage_times] {smi}; B=128, O=10, bf16; CUDA events, 20 launches, twice; "
+          f"csrc {args.csrc}", flush=True)
     for kernel in args.kernels:
-        run(kernel, args.csrc)
+        run(kernel, args.csrc, args.whole, args.box)
     return 0
 
 

@@ -33,7 +33,8 @@ raises, and the run then exits non-zero without printing a result:
      K4', which the decoder does not call, at SPADE-4's shape; K2's
      transposed mode and the typed v3, which no model path calls, at the
      c7 head's and K5's), in bf16 and in f32 (TF32 off), with the tolerance
-     stated beside each, and for K1 and K2 the kernel the wrapper took
+     stated beside each (K6 with its weights packed once, as the ConvLSTM
+     calls it), and for K1 and K2 the kernel the wrapper took
      (tensor cores or FMAs); K2 on compact tables must equal K3 bit for
      bit; the tensor-core kernels (K1, K2, K3, K5) also in bf16 at the
      small model's widths, which the f32 reference phase does not send
@@ -42,7 +43,10 @@ raises, and the run then exits non-zero without printing a result:
      span of 20 calls, the host's gaps included) and, in bf16, by the
      device time of their launches under torch.profiler, which the kernels
      line reports, beside the bound computed from the shapes and, for v6,
-     from the data;
+     from the data; v6 equal to K5 bit for bit on random inputs, on the
+     inputs the 128^2 path makes from the bench's layouts (timed there
+     beside K5) and on objects of one row type and of none; K6 equal to its
+     plain version at Cout 480, Cin 144 and 40, k = 1, 3 and 7;
   8. reference: small f32 generators (64^2, 128^2, 128^2 with
      `int8_serving` at a lowered threshold, and 128^2 in each A/B
      configuration) on the card, kernels on, against the same models on the
@@ -51,7 +55,9 @@ raises, and the run then exits non-zero without printing a result:
   9. fall-through: 64^2 and 128^2 generate at conv_dim=12 in bf16, a width
      the tensor-core and typed kernels do not take: each site takes the
      next route (the FMA kernels of K1 and K2, K2 for the c7 head, the
-     plain typed expansion), against the f32 plain path on the CPU.
+     plain typed expansion), against the f32 plain path on the CPU; and
+     64^2 with `int8_serving` at conv_dim=60 (f32, B=4), whose 600 -> 480
+     gate conv K6 must take, against the CPU.
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -95,7 +101,7 @@ SOURCES = {
                            "aglayout_tpu/ops/pallas_typed_expand.py:148"),
     "typed_c3_expand_v5": ("aglayout_tpu_torch/csrc/typed_c3_expand_v5.cu",
                            "aglayout_tpu/ops/pallas_typed_expand.py:520"),
-    "typed_c3_expand_v6": ("aglayout_tpu_torch/csrc/typed_c3_expand_v6.cu",
+    "typed_c3_expand_v6": ("aglayout_tpu_torch/csrc/typed_c3_expand.cu",
                            "aglayout_tpu/ops/pallas_typed_expand.py:680"),
     # the compact=True and transposed=True modes of spade_few_out_conv
     "spade_few_out_conv[compact]": ("aglayout_tpu_torch/csrc/spade_few_out_conv.cu",
@@ -119,6 +125,10 @@ VARIANTS = (
     ("head8 off, flat", {"use_head8_kernel": False, "use_compact_heads": False},
      {**PATH128, "spade_few_out_conv8": 0, K2: 2}, None),
 )
+# the hand-written kernels a wrapper launches each time it counts one launch
+# (the quantise passes and the product; the max pass and the conv; v5's two
+# stages), where more than one
+OURS = {"conv_small_int8": 3, "spade_c6_int8": 2, "typed_c3_expand_v5": 2}
 # the wrappers that pick between a tensor-core and an FMA kernel by shape
 ROUTED = ("residual_trunk", K2)
 SWITCHES = ("use_trunk_kernel", "use_head_kernel", "use_typed_kernel", "use_apply_kernel",
@@ -142,27 +152,81 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+def hand_written(*csrcs):
+    """A pattern that finds, in a trace's kernel names, the `__global__`
+    functions of these csrc/ directories (default: this checkout's)."""
+    import re
+    from pathlib import Path
+
+    names = set()
+    for d in csrcs or (Path(__file__).resolve().parent / "aglayout_tpu_torch" / "csrc",):
+        for f in sorted(Path(d).glob("*.cu*")):
+            names.update(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                                    f.read_text()))
+    return re.compile(r"(?:^|[\s:])(?:" + "|".join(sorted(names)) + r")[<(]")
+
+
+def device_ms(fn, ours: int, iters: int = 20, warmup: int = 3, csrcs=()) -> float:
     """Device time of fn() in ms: the summed durations of the kernels it
     launches, from `torch.profiler` over `iters` calls. Unlike `cuda_ms` it
     leaves out the device's idle time between launches, which for a call
     shorter than its host overhead (K1's: a wrapper, two weight launches and
-    the kernel) is most of what the events measure."""
-    from torch.profiler import ProfilerActivity, profile
+    the kernel) is most of what the events measure.
 
+    Each trace follows a warm-up step of `iters` calls under the profiler,
+    whose trace is dropped: without it the first launch of a window could go
+    missing (on the card: one of 20 in most windows of K6's and K7's calls).
+    A trace can still come back short, so it counts only when it is whole:
+    `ours` launches a call of the hand-written kernels (`hand_written`; the
+    caller takes the count from the wrapper's own launch counter), every
+    kernel a whole number of launches a call, and every kernel that another
+    trace of fn showed. fn is traced twice, and up to four times until a
+    trace is whole; the mean of the whole traces is returned, and a run with
+    none raises."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    ours_re = hand_written(*csrcs)
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = 0.0
-    for ev in prof.events():
-        if ev.device_type == torch.autograd.DeviceType.CUDA:
-            t = getattr(ev, "device_time_total", None)  # cuda_time_total in older PyTorch
-            us += ev.cuda_time_total if t is None else t
-    return us / 1e3 / iters
+    traces = []  # kernel name -> [us, launches], a trace each
+    for _ in range(4):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):  # the warm-up step, then the traced one
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        per = {}
+        for ev in prof.events():
+            # the schedule marks its step on the device too: not a launch
+            if ev.device_type == torch.autograd.DeviceType.CUDA and not ev.name.startswith("ProfilerStep"):
+                t = getattr(ev, "device_time_total", None)  # cuda_time_total in older PyTorch
+                acc = per.setdefault(ev.name, [0.0, 0])
+                acc[0] += ev.cuda_time_total if t is None else t
+                acc[1] += 1
+        traces.append(per)
+        names = set().union(*traces)
+        whole = [p for p in traces
+                 if set(p) == names and all(n % iters == 0 for _, n in p.values())
+                 and sum(n for name, (_, n) in p.items() if ours_re.search(name)) == ours * iters]
+        if len(traces) >= 2 and whole:
+            return sum(us for p in whole for us, _ in p.values()) / len(whole) / iters / 1e3
+    raise AssertionError(f"torch.profiler: no whole trace of {iters} calls ({ours} hand-written "
+                         f"launches a call) in {len(traces)}: "
+                         f"{[{k: n for k, (_, n) in p.items()} for p in traces]}")
+
+
+def wrapper_ms(name: str, fn) -> float:
+    """`device_ms` of fn, calls of the wrapper of kernel `name`: its
+    hand-written launches a call are the wrapper's own launch count over one
+    call times the kernels it launches each time (`OURS`)."""
+    total = lambda: sum(w.launches for w in counted().values())  # noqa: E731
+    before = total()
+    fn()
+    torch.cuda.synchronize()
+    return device_ms(fn, (total() - before) * OURS.get(name, 1))
 
 
 def errors(got, want):
@@ -456,9 +520,28 @@ def head_inputs(dec, mode: str, dtype, gen, dev):
 
 def gate_inputs(cell, dtype, gen, dev):
     """K6 at the wide ConvLSTM layer's shape: cat(x, h) (B, 640, 8, 8) and
-    the cell's quantised 640 -> 512 gate conv."""
+    the cell's quantised 640 -> 512 gate conv (wq, sw)."""
     x = torch.randn(B, cell.conv.in_channels, 8, 8, generator=gen).to(dev, dtype)
-    return (x, *cell.quantized_weights())
+    return (x, *cell.quantized_weights()[:2])
+
+
+def box_typed_inputs(model):
+    """The typed kernel's inputs as the 128^2 path makes them from the
+    serving bench's layouts (B=128, O=10): what `LayoutEncoder` hands the
+    typed kernel in one generate, recorded."""
+    from aglayout_tpu_torch.bench import layouts
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.ops import typed_expand as te
+
+    cfg = config_for(128, batch_size=B, max_objects=O, bf16=True)  # the model's
+    seen, kernel = [], te.VARIANTS["v4"]
+    te.VARIANTS["v4"] = lambda *a: seen.append(a) or kernel(*a)
+    try:
+        with torch.no_grad():
+            model.generate(*layouts(cfg, B, O, seed=0, device="cuda"))
+    finally:
+        te.VARIANTS["v4"] = kernel
+    return seen[0]
 
 
 def c6_inputs(dec, dtype, gen, dev):
@@ -498,6 +581,8 @@ def phase_kernels(model64, model128, model_int8):
     k = counted()
     dec64, dec128 = model64.decoder, model128.decoder
     cell0 = model_int8.layout_encoder.clstm.cell_list[0]
+    # the gate conv's weights packed once, as `LayoutFuser` packs them a forward
+    k6 = functools.partial(k["conv_small_int8"], packed=cell0.quantized_weights()[2])
     # tolerance on max|err| / max|plain|: f32 only differs in summation
     # order; in bf16 the intermediates are rounded to bf16 on both sides, so
     # an order difference can flip a rounding (one bf16 ulp is 2^-8).
@@ -513,7 +598,7 @@ def phase_kernels(model64, model128, model_int8):
     def typed_v6_ops(a):
         # v6 skips the product of a row type that no output row has: count
         # the types that selR names, object by object
-        types = torch.zeros(a[3].shape[0], 14, device=dev).scatter_(1, a[3].long(), 1.0).sum().item()
+        types = te.present_row_types(a[3])[1].sum().item()
         return 2.0 * types * 12 * a[6].numel(), BF16
 
     def mode(name, **kw):  # K2 or its plain version in one of its modes
@@ -536,7 +621,7 @@ def phase_kernels(model64, model128, model_int8):
          lambda a: (3.0 * a[0].numel(), F32)),
         ("typed_c3_expand", k["typed_c3_expand"], te.typed_c3_expand_plain,
          lambda dt: typed_inputs(model128, dt, gen, dev), typed_ops),
-        ("conv_small_int8", k["conv_small_int8"], conv_small_int8_plain,
+        ("conv_small_int8", k6, conv_small_int8_plain,
          lambda dt: gate_inputs(cell0, dt, gen, dev),
          lambda a: (conv_ops(a[0], a[1], a[1].shape[0]), INT8)),
         ("spade_c6_int8", functools.partial(k["spade_c6_int8"], f=16),
@@ -581,7 +666,7 @@ def phase_kernels(model64, model128, model_int8):
                 ms_a = cuda_ms(lambda: kernel(*args))
                 ms_b = cuda_ms(lambda: kernel(*args))
                 ms_plain_b = cuda_ms(lambda: plain(*args))
-                on_device = device_ms(lambda: kernel(*args)) if dt == torch.bfloat16 else None
+                on_device = wrapper_ms(name, lambda: kernel(*args)) if dt == torch.bfloat16 else None
             ms, ms_plain = (ms_a + ms_b) / 2, (ms_plain_a + ms_plain_b) / 2
             limit = 1e-6 if name in exact and dt == torch.float32 else tol[dt]
             log(f"[kernel] {name} {str(dt)[6:]}: shape {tuple(got.shape)}, max abs err {err:.3e}, "
@@ -621,14 +706,81 @@ def phase_kernels(model64, model128, model_int8):
             del args, got, want
     set_tf32(True)
     phase_kernels_small(k, gen, dev, tol[torch.bfloat16])
+    phase_typed_v6(model128, gen, dev, rows["typed_c3_expand_v6"])
+    phase_k6_shapes(k, gen, dev)
     return rows
+
+
+def phase_typed_v6(model128, gen, dev, row):
+    """v6 runs K5's kernel on the row types an object's selR names: held
+    against K5 bit for bit (each row is summed in K5's order) on the random
+    inputs, on the inputs the 128^2 path makes from the serving bench's
+    layouts, and with objects of one row type and of none (every row outside
+    [0, 14)); and timed on the box-derived inputs beside K5, in turns."""
+    from aglayout_tpu_torch.ops import typed_expand as te
+
+    v4, v6 = te.typed_c3_expand, te.typed_c3_expand_v6
+    edge = list(typed_inputs(model128, torch.bfloat16, gen, dev))
+    sel = edge[3].clone()
+    sel[0], sel[1], sel[2, ::2] = 14, 5, -3
+    edge[3] = sel
+    cases = (("random", typed_inputs(model128, torch.bfloat16, gen, dev)),
+             ("box-derived", box_typed_inputs(model128)), ("edge", tuple(edge)))
+    for label, args in cases:
+        _, counts, rows = te.present_row_types(args[3])
+        sel = args[3]
+        outside = (sel < 0) | (sel >= 14)  # rows of no type: zeros, which the plain version
+        plain_args = (*args[:3], sel.clamp(0, 13), *args[4:])  # cannot index, so they are masked
+        with torch.no_grad():
+            got, want = v6(*args), v4(*args)
+            plain = te.typed_c3_expand_plain(*plain_args).masked_fill(outside[:, None, :, None], 0)
+            err, rel = errors(got, plain)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or rel > 2e-2 or (label == "edge" and got[0].any()):
+            raise AssertionError(f"typed v6 on {label} inputs: not K5's bits, or {rel:.3e} from "
+                                 "its plain version, or an object of no row type not zero")
+        log(f"[kernel] typed_c3_expand_v6 bf16 on {label} inputs: equals typed_c3_expand bit for "
+            f"bit, rel err {rel:.3e} against the plain version (tol 2e-2); row types an object "
+            f"{counts.float().mean().item():.2f} of 14, W3z rows {rows.float().mean().item():.1f} "
+            "of 192")
+        if label == "box-derived":
+            runs = {"v6": [], "v4": []}
+            for name in ("v6", "v4", "v4", "v6"):
+                fn = v6 if name == "v6" else v4
+                runs[name].append(wrapper_ms(name, lambda: fn(*args)))
+            ms = {name: sum(r) / 2 for name, r in runs.items()}
+            log(f"[kernel] typed_c3_expand_v6 bf16 on box-derived inputs: on the device "
+                f"{ms['v6']:.4f} ms (runs {runs['v6']}), typed_c3_expand {ms['v4']:.4f} ms "
+                f"(runs {runs['v4']}); on random inputs {row['ms']:.4f} ms")
+
+
+def phase_k6_shapes(k, gen, dev):
+    """K6 bit for bit against its plain version at the shapes past the
+    published one: Cout not a multiple of 64 (conv_dim 60's 600 -> 480),
+    Cin not a multiple of 32, a batch of one partial CTA, k = 1, 3 (the
+    kernel's draining instantiation) and 7."""
+    from aglayout_tpu_torch.ops.conv8_int8 import conv_small_int8_plain, pack_conv_small_int8_weights
+    from aglayout_tpu_torch.ops.int8 import quantize_conv_weights
+
+    for b, cin, cout, ks in ((4, 600, 480, 5), (6, 144, 64, 5), (5, 40, 24, 3), (3, 50, 72, 7),
+                             (9, 300, 64, 1)):
+        for dt in (torch.bfloat16, torch.float32):
+            x = torch.randn(b, cin, 8, 8, generator=gen).to(dev, dt)
+            wq, sw = quantize_conv_weights(torch.randn(cout, cin, ks, ks, generator=gen).mul(0.02).to(dev))
+            got = k["conv_small_int8"](x, wq, sw, k=ks, packed=pack_conv_small_int8_weights(wq))
+            want = conv_small_int8_plain(x, wq, sw, k=ks)
+            if not torch.equal(got, want):
+                raise AssertionError(f"conv_small_int8 ({b}, {cin}) -> {cout}, k={ks}, {dt}: "
+                                     "not its plain version's bits")
+    log("[kernel] conv_small_int8 equals its plain version bit for bit at (4, 600 -> 480), "
+        "(6, 144 -> 64), (5, 40 -> 24, k=3), (3, 50 -> 72, k=7), (9, 300 -> 64, k=1), bf16 and f32")
 
 
 def phase_kernels_small(k, gen, dev, limit: float):
     """The tensor-core kernels in bf16 at the widths of the small reference
     model (conv_dim=16: C = 16 in the trunk and the c4 head, 32 at the c7
     head, c2 = 32, c4 = 64), which generate reaches in f32 only, where they
-    run their FMA kernels: K1, K2, K3, K5."""
+    run their FMA kernels: K1, K2, K3, K5 and its v6 schedule."""
     from aglayout_tpu_torch.ops.resblocks import residual_trunk_plain
     from aglayout_tpu_torch.ops.spade_conv import spade_few_out_conv8_plain, spade_few_out_conv_plain
     from aglayout_tpu_torch.ops.typed_expand import typed_c3_expand_plain
@@ -648,7 +800,8 @@ def phase_kernels_small(k, gen, dev, limit: float):
     for name, plain, args in (("residual_trunk", residual_trunk_plain, trunk),
                               (K2, spade_few_out_conv_plain, head4),
                               ("spade_few_out_conv8", spade_few_out_conv8_plain, head),
-                              ("typed_c3_expand", typed_c3_expand_plain, typed)):
+                              ("typed_c3_expand", typed_c3_expand_plain, typed),
+                              ("typed_c3_expand_v6", typed_c3_expand_plain, typed)):
         before = route_counts()
         with torch.no_grad():
             err, rel = errors(k[name](*args), plain(*args))
@@ -789,6 +942,39 @@ def phase_fallthrough(size: int):
             raise AssertionError(f"fall-through {size}: {name} disagree")
 
 
+def phase_fallthrough_int8():
+    """`int8_serving` at conv_dim=60 (64^2, B=4, f32): the wide ConvLSTM
+    layer's gate conv is 600 -> 480, whose 480 output channels are not a
+    multiple of 64; JAX engages its kernel there, and so must the port:
+    K6 launches once a slot, and the image is held against the same model on
+    the CPU, plain path, with the int8 limit of the reference phase (a
+    last-bit difference upstream can move an activation across a
+    quantisation step): 1e-3."""
+    from aglayout_tpu_torch.bench import layouts
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.models import build_generator
+
+    set_tf32(False)
+    cfg = config_for(64, conv_dim=60, int8_serving=True)
+    ins = layouts(cfg, 4, O, seed=4, device="cpu")
+    with torch.no_grad():
+        gpu = build_generator(cfg, "cuda", seed=4)
+        cell = gpu.layout_encoder.clstm.cell_list[0]
+        launch_counts(reset=True)
+        got = gpu.generate(*(t.cuda() for t in ins)).cpu()
+        torch.cuda.synchronize()
+        n = launch_counts()["conv_small_int8"]
+        want = build_generator(cfg, "cpu", seed=4).generate(*ins)
+    set_tf32(True)
+    err, rel = errors(got, want)
+    log(f"[fall-through int8] conv_dim=60 64^2 B=4 f32, {cell.conv.in_channels} -> "
+        f"{cell.conv.out_channels} gate conv: conv_small_int8 launched {n} times (expected {O}); "
+        f"card vs CPU: max abs err {err:.3e}, rel {rel:.3e} (tol 1e-3)")
+    if n != O or not torch.isfinite(got).all() or rel > 1e-3:
+        raise AssertionError("int8_serving at conv_dim=60: K6 did not take the gate conv, or the "
+                             "image disagrees with the CPU")
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -815,6 +1001,7 @@ def main() -> int:
     phase_reference_cell()
     phase_fallthrough(64)
     phase_fallthrough(128)
+    phase_fallthrough_int8()
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

@@ -14,7 +14,11 @@ from aglayout_tpu_torch.config import config_for
 from aglayout_tpu_torch.models import build_generator, init_weights
 from aglayout_tpu_torch.models.convlstm import ConvLSTMCell
 from aglayout_tpu_torch.models.norms import SPADE
-from aglayout_tpu_torch.ops.conv8_int8 import conv_small_int8, conv_small_int8_plain
+from aglayout_tpu_torch.ops.conv8_int8 import (
+    conv_small_int8,
+    conv_small_int8_plain,
+    pack_conv_small_int8_weights,
+)
 from aglayout_tpu_torch.ops.int8 import quantize_conv_weights
 from aglayout_tpu_torch.ops.resblocks import residual_trunk, residual_trunk_plain
 from aglayout_tpu_torch.ops.spade_c6_int8 import spade_c6_int8, spade_c6_int8_plain
@@ -175,20 +179,23 @@ def test_apply_t_kernel_matches_plain(cuda, dt):
     assert torch.equal(got, spade_apply8(x, a_tab, b_tab, 16))  # K4's function, K4's numerics
 
 
-# b, cin, cout: the wide gate conv (batch cut; 6 is not a multiple of 4
-# images a CTA, and its chunk is 6), and a narrow one with Cin % 32 != 0
+# b, cin, cout, k: the wide gate conv (batch cut; 6 is not a multiple of 8
+# images a CTA, and its chunk is 6), a narrow one with Cin % 32 != 0,
+# conv_dim 60's 600 -> 480 (Cout not a multiple of 64), and k = 1, 3 and 7
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("b,cin,cout", [(32, 640, 512), (6, 144, 64)])
-def test_conv_small_int8_kernel_matches_plain(cuda, dt, b, cin, cout):
+@pytest.mark.parametrize("b,cin,cout,k", [(32, 640, 512, 5), (6, 144, 64, 5), (4, 600, 480, 5),
+                                          (5, 40, 24, 3), (3, 50, 72, 7), (9, 300, 64, 1)])
+def test_conv_small_int8_kernel_matches_plain(cuda, dt, b, cin, cout, k):
     g = torch.Generator().manual_seed(7)
     x = torch.randn(b, cin, 8, 8, generator=g).to(cuda, DT[dt])
-    wq, sw = quantize_conv_weights(torch.randn(cout, cin, 5, 5, generator=g).mul(0.02).to(cuda))
+    wq, sw = quantize_conv_weights(torch.randn(cout, cin, k, k, generator=g).mul(0.02).to(cuda))
+    packed = pack_conv_small_int8_weights(wq)  # packed once by the caller, as the ConvLSTM does
     before = conv_small_int8.launches
-    got = conv_small_int8(x, wq, sw)
-    want = conv_small_int8_plain(x, wq, sw)
+    got = conv_small_int8(x, wq, sw, k=k, packed=packed)
+    want = conv_small_int8_plain(x, wq, sw, k=k)
     assert conv_small_int8.launches == before + 1 and got.shape == (b, cout, 8, 8)
-    # exact integer sums and the same f32 products on both sides
-    assert got.dtype == DT[dt] and _rel(got, want) <= 1e-6
+    # exact integer sums and the same f32 products on both sides: the same bits
+    assert got.dtype == DT[dt] and torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -213,16 +220,23 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(4, 64, 8, 8, device=cuda)
     wq, sw = quantize_conv_weights(torch.randn(64, 64, 5, 5).to(cuda))
     launches = (conv_small_int8.launches, spade_c6_int8.launches, spade_apply_t.launches)
+    wp = pack_conv_small_int8_weights(wq)
     with pytest.raises(ValueError, match="want \\(B, Cin, 8, 8\\)"):
-        conv_small_int8(torch.zeros(4, 64, 16, 16, device=cuda), wq, sw)
+        conv_small_int8(torch.zeros(4, 64, 16, 16, device=cuda), wq, sw, packed=wp)
     with pytest.raises(ValueError, match="int8"):
-        conv_small_int8(x, wq.float(), sw)
-    with pytest.raises(ValueError, match="multiple of 64"):
-        conv_small_int8(x, wq[:32].contiguous(), sw[:32].contiguous())
+        conv_small_int8(x, wq.float(), sw, packed=wp)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv_small_int8(x, wq[:12].contiguous(), sw[:12].contiguous(), packed=wp)
+    with pytest.raises(ValueError, match="packed weights"):  # packed for other weights
+        conv_small_int8(x, wq, sw, packed=pack_conv_small_int8_weights(wq[:, :, :, :32].contiguous()))
+    with pytest.raises(ValueError, match="takes the weights packed"):  # not packed at all
+        conv_small_int8(x, wq, sw)
+    with pytest.raises(ValueError, match="not supported"):  # an even k
+        conv_small_int8(x, wq[:, :4, :4].contiguous(), sw, k=4, packed=wp)
     with pytest.raises(ValueError, match="dtype"):
-        conv_small_int8(x.half(), wq, sw)
+        conv_small_int8(x.half(), wq, sw, packed=wp)
     with pytest.raises(ValueError, match="contiguous"):
-        conv_small_int8(x.permute(0, 1, 3, 2), wq, sw)
+        conv_small_int8(x.permute(0, 1, 3, 2), wq, sw, packed=wp)
     y = torch.zeros(1, 128, 32, 32, device=cuda)
     tab = torch.zeros(1, 4, 5, 128, 20, device=cuda)
     w6q, sw6 = quantize_conv_weights(torch.randn(128, 128, 5, 5).to(cuda))
@@ -296,6 +310,78 @@ def test_typed_v6_skips_absent_row_types(cuda):
     want = typed_c3_expand_plain(z2, idxR, lsel, selR.clamp(max=13), selC, ab, weight)
     want[1, :, ::2] = 0
     assert _rel(got, want) < TOL["f32"]
+
+
+def _box_typed_inputs(cuda, dt):
+    """The typed kernel's inputs as a small 128^2 model (conv_dim 16: c2 =
+    32, c4 = 64) makes them from box layouts, recorded in one generate."""
+    cfg = config_for(128, conv_dim=16, clstm_layers=2, resi_num=2, num_classes=23,
+                     bf16=dt == "bf16")
+    g = torch.Generator().manual_seed(5)
+    b, o = 8, 10
+    xy0 = torch.rand(b, o, 2, generator=g) * 0.6
+    boxes = torch.cat([xy0, (xy0 + 0.1 + 0.3 * torch.rand(b, o, 2, generator=g)).clamp(max=1)], -1)
+    ins = (torch.randint(0, cfg.num_classes, (b, o), generator=g), boxes, torch.ones(b, o),
+           torch.randn(b, o, cfg.z_dim, generator=g),
+           (torch.rand(b, o, cfg.attribute_dim, generator=g) < 0.1).float())
+    seen, kernel = [], typed_expand.VARIANTS["v4"]
+    typed_expand.VARIANTS["v4"] = lambda *a: seen.append(a) or kernel(*a)
+    try:
+        with torch.no_grad():
+            build_generator(cfg, cuda, seed=1).generate(*(t.to(cuda) for t in ins))
+    finally:
+        typed_expand.VARIANTS["v4"] = kernel
+    return seen[0]
+
+
+@pytest.mark.parametrize("inputs", ["random", "box", "edge"])
+def test_typed_v6_equals_k5_bit_for_bit(cuda, inputs):
+    """v6 runs K5's kernel on the row types selR names, each row summed in
+    K5's order: in bf16 the same bits as K5 and within 2e-2 of the plain
+    version, on random inputs, on box-derived ones (few types an object),
+    and with an object of one type and one whose rows all lie outside [0,
+    14) (zeros)."""
+    if inputs == "box":
+        args = _box_typed_inputs(cuda, "bf16")
+    else:
+        args = list(_typed_case(cuda, "bf16", 13, seed=15))
+        if inputs == "edge":
+            sel = args[3].clone()
+            sel[0], sel[1], sel[2, ::2] = 14, 5, -3
+            args[3] = sel
+    before = typed_expand.typed_c3_expand_v6.launches
+    got = typed_expand.typed_c3_expand_v6(*args)
+    assert typed_expand.typed_c3_expand_v6.launches == before + 1
+    assert torch.equal(got, typed_c3_expand(*args))
+    sel = args[3]
+    outside = (sel < 0) | (sel >= 14)  # rows of no type are zeros; the plain version cannot index them
+    want = typed_c3_expand_plain(*args[:3], sel.clamp(0, 13), *args[4:])
+    assert _rel(got, want.masked_fill(outside[:, None, :, None], 0)) < TOL["bf16"]
+    if inputs == "edge":
+        assert not got[0].any()
+    if inputs == "box":
+        _, counts, _ = typed_expand.present_row_types(args[3])
+        assert counts.float().mean() < 14
+
+
+def test_int8_serving_at_conv_dim_60_takes_k6(cuda):
+    """conv_dim 60: the wide gate conv is 600 -> 480 (480 not a multiple of
+    64), which JAX's kernel takes; the port's route sends it through K6, once
+    a slot, and the image matches the CPU within the int8 limit."""
+    cfg = config_for(64, conv_dim=60, int8_serving=True)
+    g = torch.Generator().manual_seed(4)
+    b, o = 2, 3
+    xy0 = torch.rand(b, o, 2, generator=g) * 0.6
+    boxes = torch.cat([xy0, (xy0 + 0.2).clamp(max=1)], -1)
+    ins = (torch.randint(0, cfg.num_classes, (b, o), generator=g), boxes, torch.ones(b, o),
+           torch.randn(b, o, cfg.z_dim, generator=g),
+           (torch.rand(b, o, cfg.attribute_dim, generator=g) < 0.1).float())
+    before = conv_small_int8.launches
+    with torch.no_grad():
+        got = build_generator(cfg, cuda, seed=4).generate(*(t.to(cuda) for t in ins)).cpu()
+    assert conv_small_int8.launches == before + o
+    want = build_generator(cfg, "cpu", seed=4).generate(*ins)
+    assert _rel(got, want) < 1e-3
 
 
 def test_typed_v5_reuses_its_scratch(cuda):

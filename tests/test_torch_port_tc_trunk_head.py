@@ -313,8 +313,8 @@ def test_head_kernel_route_by_alignment_and_mode():
     (24, 48, 32, torch.bfloat16, set()),  # conv_dim = 12: c2 % 16
     (32, 64, 32, torch.bfloat16, {"v4", "v5", "v6"}),
     (16, 64, 32, torch.bfloat16, {"v4", "v6"}),  # v5 takes c2 % 32
-    (128, 256, 24, torch.bfloat16, {"v5", "v6"}),  # v4's bf16 epilogue: s3 in (8, 16, 32, 64)
-    (256, 64, 32, torch.bfloat16, {"v5", "v6"}),  # v4: shared memory
+    (128, 256, 24, torch.bfloat16, {"v5"}),  # v4's and v6's bf16 epilogue: s3 in (8, 16, 32, 64)
+    (256, 64, 32, torch.bfloat16, {"v5"}),  # v4 and v6 (one kernel): shared memory
     (24, 48, 32, torch.float32, set()),
     (16, 8, 32, torch.float32, {"v4", "v6"}),  # f32 chunks of 8 channels
 ])
