@@ -1,6 +1,6 @@
 // Shared helpers for the kernels of this directory: conversions between the
 // compute dtype (float or bf16) and float, vector loads and stores, the
-// SPADE table geometry, and the int8 tensor-core primitives.
+// SPADE table geometry, the tensor-core and copy-engine primitives.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,29 +76,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-// d += a * b on the int8 tensor cores: a is 16 x 32 s8 (rows, k contiguous),
-// b is 32 x 8 s8 held k-contiguous per column, d is 16 x 8 s32. Byte for
-// byte the operand layout of the bf16 m16n8k16 product, so ldmatrix feeds it.
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                       uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes from global to shared memory without passing through registers;
-// with `valid` false the 16 bytes are zero-filled and src is not read.
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid = true) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-// Waits until at most one committed group of this thread is still in flight.
-__device__ __forceinline__ void cp_async_wait_1() { asm volatile("cp.async.wait_group 1;\n" ::: "memory"); }
 
 // An mbarrier in shared memory (8 bytes, 8-byte aligned; `bar` is its
 // smem_u32 address) that tracks the bytes of asynchronous bulk copies.

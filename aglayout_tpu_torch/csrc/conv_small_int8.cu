@@ -47,7 +47,7 @@
 //     plain version, so the output equals it bit for bit, and writes the
 //     channels' 8-pixel rows straight to device memory.
 
-#include "common.cuh"
+#include "int8_wgmma.cuh"
 
 namespace {
 
@@ -132,69 +132,6 @@ quantize_kernel(const T* __restrict__ x, const unsigned* __restrict__ amax,
     }
     *reinterpret_cast<uint4*>(dst + (((cg * P + py) * 4 + b % 4) * P + px) * 16) = v;
   }
-}
-
-// wgmma: d (64 x 256 s32; thread (warp w, lane l) holds rows 16 w + l / 4 and
-// + 8, and of column tile j the columns 8 j + 2 (l % 4) and + 1, in d[4 j ..
-// 4 j + 3] as mma.sync would) (+)= a (64 x 32 s8) . b (256 x 32 s8)^T, both
-// K-major in shared memory, named by descriptors. With scale_d == 0 d is
-// overwritten.
-__device__ __forceinline__ void wgmma_m64n256k32_s8(int (&d)[128], uint64_t da, uint64_t db,
-                                                    int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]),
-        "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]),
-        "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]),
-        "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
-        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]),
-        "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
-        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]),
-        "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
-        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),
-        "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]),
-        "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]),
-        "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
-        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]),
-        "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),
-        "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]),
-        "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
-        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]),
-        "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]),
-        "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),
-        "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
-      : "l"(da), "l"(db), "r"(scale_d));
-}
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int PENDING>  // waits until at most PENDING committed groups are in flight
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
-}
-// A K-major tile with the 128-byte swizzle: rows of 128 bytes, the 16-byte
-// pieces of row n at piece ^ (n % 8), groups of 8 rows 1024 bytes apart; the
-// tile 1024-byte aligned, advanced by 32 bytes per k32 step inside a row.
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-// A K-major tile without swizzle: 8-row x 16-byte core matrices of 128
-// contiguous bytes, the two of a k32 step `lead` bytes apart, groups of 8
-// rows `stride` bytes apart.
-__device__ __forceinline__ uint64_t desc_plain(uint32_t addr, uint32_t lead, uint32_t stride) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lead >> 4) << 16) |
-         ((uint64_t)(stride >> 4) << 32);
 }
 
 // q as quantize_kernel writes it; wp: [Mp / 64][steps / 4][64][128] s8, the
@@ -283,7 +220,7 @@ conv_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ wp,
   for (int sl = 0, wst = 0, wph = 0, s = 0; sl < nslices; ++sl) {
     agl::mbar_wait_in_asm(full(wst), wph);
     const uint32_t slice = ring + wst * SLICE_BYTES;
-    wgmma_fence();
+    agl::wgmma_fence();
 #pragma unroll
     for (int j = 0; j < SL; ++j, ++s) {
       if (s >= steps) break;
@@ -294,30 +231,30 @@ conv_kernel(const int8_t* __restrict__ q, const int8_t* __restrict__ wp,
             // them finish and hand their stages back (with k >= 5 a chunk
             // is 25 steps or more, and the stage two chunks back is always
             // free by the start of the slice)
-            wgmma_commit();
-            wgmma_wait<0>();
+            agl::wgmma_commit();
+            agl::wgmma_wait<0>();
             free_maps(s);
-            wgmma_fence();
+            agl::wgmma_fence();
           }
         }
         agl::mbar_wait_in_asm(mfull(c % MSTAGES), (c / MSTAGES) & 1);
       }
-      const uint64_t da = desc_sw128(slice + (j >> 2) * (BM * 128) + (j & 3) * 32);
-      const uint64_t db = desc_plain(quad + (c % MSTAGES) * 2 * QB + toff, lead, stride);
-      wgmma_m64n256k32_s8(acc, da, db, s != 0);
+      const uint64_t da = agl::desc_sw128(slice + (j >> 2) * (BM * 128) + (j & 3) * 32);
+      const uint64_t db = agl::desc_plain(quad + (c % MSTAGES) * 2 * QB + toff, lead, stride);
+      agl::wgmma_m64n256k32_s8(acc, da, db, s != 0);
       toff += 16;
       if (++dx == k) dx = 0, toff += (4 * P - k) * 16;
       if (++tap == KK) tap = 0, toff = 0, ++c;
     }
-    wgmma_commit();
-    wgmma_wait<1>();  // the slice before is done: its weight stage, and the maps it finished
+    agl::wgmma_commit();
+    agl::wgmma_wait<1>();  // the slice before is done: its weight stage, and the maps it finished
     if (sl > 0) {
       agl::mbar_arrive_if(empty(wst == 0 ? WST - 1 : wst - 1), lane == 0);
       free_maps(sl * SL);
     }
     if (++wst == WST) wst = 0, wph ^= 1;
   }
-  wgmma_wait<0>();
+  agl::wgmma_wait<0>();
 
   // dequantise: sum (j, e) is channel m0 + 16 (warp % 4) + g + 8 (e / 2) and
   // pixel group j = 4 y + i of the quad, column x = 2 t + e % 2

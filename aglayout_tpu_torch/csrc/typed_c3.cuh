@@ -1,8 +1,8 @@
 // Device helpers shared by the typed-c3 kernels of this directory
-// (typed_c3_expand.cu and its variants _v3, _v5, _v6): the geometry of the
-// type grids, the one-object chunk product on the tensor cores, the
-// column-window sum with the bn3 affine, and the expansion's store loop.
-// Each variant keeps its own __global__ kernel and schedule.
+// (typed_c3_expand.cu, whose kernels also run v5 and v6, and _v3): the
+// geometry of the type grids, the one-object chunk product on the tensor
+// cores, the column-window sum with the bn3 affine, and the expansion's
+// store loop. Each source keeps its own __global__ kernels and schedules.
 //
 // Per object, with z2 its grid of c2 values by (row type, col type) and w3
 // the (c4, c2, 4, 4) c3 weight:

@@ -55,7 +55,17 @@
 // bound the kernel (PERF.md has the stage times).
 // In f32 the product runs on FMAs (CC = 8), one block an object, the stages
 // one after the other: a reference path.
-// The same kernel replaces pallas_typed_expand.py::typed_c3_expand_v6, whose
+// Shapes: any c2 % 16 == 0 (c2 / 16 slices of 64 k), c4 % 16 == 0 (a last
+// chunk of 16 channels multiplies zero weights in its upper half) and s3 % 8
+// == 0, as far as a block's shared memory holds the grid tile: where K5's
+// buffers do not fit beside a wide grid tile or a large s3, the row types
+// along x are held for 16 or 8 channels at a time and the staging buffers
+// shrink to 8 KB (`Layout`); the sums are the same, so are the bits. At the
+// 128^2 model that takes conv_dim 64, 96 and 128 (c2 = 2 conv_dim).
+// The same kernel replaces pallas_typed_expand.py::typed_c3_expand_v5, whose
+// one product over all row types of an object is what its three warpgroups
+// already do: typed_c3_expand_v5 launches it as it is, bit for bit K5.
+// It also replaces pallas_typed_expand.py::typed_c3_expand_v6, whose
 // idea is to skip a row type that no output row has (typed_c3_expand_v6, the
 // V6 instantiation): the present types' rows are compacted, so a warpgroup
 // whose 64 rows hold none only lets the weight stages pass, and the epilogue
@@ -219,21 +229,37 @@ constexpr int WSTRIDE = N + 8;  // elements between two W3z rows: fragment store
 constexpr int V3A = NA + 1, V3B = 16;  // V3 rows and columns a channel, with the zero ones
 constexpr int PLANE_BYTES = 16384;     // one of the two staging buffers of finished output planes
 
+// ech: channels whose row types along x are held at a time (erows); plane:
+// bytes of a staging buffer. K5's own (32, 16 KB) wherever they fit, so that
+// the shapes it always took keep its schedule; at a wider c2, s3 or c4 the
+// largest that fit.
 struct Layout {
-  int bars, ring, zs, w3z, v3, erows, rows, ab, ints, total;
+  int ech, plane, bars, ring, zs, w3z, v3, erows, rows, ab, ints, total;
 };
-__host__ __device__ inline Layout layout(int c2, int c4, int s3) {
+__host__ __device__ inline Layout layout_at(int c2, int c4, int s3, int ech, int plane) {
   Layout l;
+  l.ech = ech;
+  l.plane = plane;
   l.bars = 0;     // full[STAGES], empty[STAGES], wfull, wempty
   l.ring = 1024;  // [STAGES][N][KS] bf16, the 16-byte pieces of row n at piece ^ (n % 8)
   l.zs = l.ring + STAGES * STAGE_BYTES;                               // [145][c2 + 8] bf16
   l.w3z = l.zs + (int)align16((size_t)(ZROW + 1) * zstride(c2) * 2);  // [M][WSTRIDE] bf16
   l.v3 = l.w3z + M * WSTRIDE * 2;                                     // [CC][V3A][V3B] bf16
-  l.erows = l.v3 + CC * V3A * V3B * 2;   // [CC][V3A][s3] bf16: the chunk's row types along x
-  l.rows = l.erows + CC * V3A * s3 * 2;  // [2][channels][s3][s3] bf16: output planes on their way out
-  l.ab = l.rows + 2 * PLANE_BYTES;      // [2][c4] f32: the object's bn3 affine
+  l.erows = l.v3 + CC * V3A * V3B * 2;    // [ech][V3A][s3] bf16: a channel group's row types along x
+  l.rows = l.erows + ech * V3A * s3 * 2;  // [2][channels][s3][s3] bf16: output planes on their way out
+  l.ab = l.rows + 2 * plane;              // [2][c4] f32: the object's bn3 affine
   l.ints = l.ab + 2 * c4 * 4;              // zrow0[56], lsl[56], sr[s3]
   l.total = l.ints + (2 * NA * KW + s3) * 4;
+  return l;
+}
+__host__ __device__ inline Layout layout(int c2, int c4, int s3) {
+  for (int plane = PLANE_BYTES; plane >= PLANE_BYTES / 2; plane /= 2)
+    for (int ech = CC; ech >= 8; ech /= 2) {
+      const Layout l = layout_at(c2, c4, s3, ech, plane);
+      if (l.total <= agl::SMEM_LIMIT && 2 * s3 * s3 <= plane) return l;
+    }
+  Layout l = layout_at(c2, c4, s3, 8, PLANE_BYTES / 2);
+  l.total = agl::SMEM_LIMIT + 1;  // nothing fits: the launch is refused
   return l;
 }
 
@@ -265,7 +291,12 @@ __device__ __forceinline__ int type_at(uint64_t slots, int j) { return (int)(slo
 // that a warpgroup whose 64 rows hold none of them skips the product, and
 // the epilogue sums V3 and expands along x those types alone. The row sums
 // are K5's, taken in K5's order.
-template <bool V6>
+// G: the general epilogue and `layout`'s buffers, for a chunk group of fewer
+// than 32 channels, 8 KB staging buffers, an s3 that is not a power of two or
+// whose column groups do not divide the 96 epilogue threads, and a last chunk
+// of 16; K5's own shapes keep the instructions the kernel always ran
+// (`launch` chooses).
+template <bool V6, bool G>
 __global__ void __launch_bounds__(THREADS, 1)
 typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __restrict__ idxR,
                           const int* __restrict__ lsel, const int* __restrict__ selR,
@@ -274,7 +305,9 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
                           int n, int c2, int c4, int s3) {
   using T = __nv_bfloat16;
   extern __shared__ __align__(1024) unsigned char smem[];
-  const Layout L = layout(c2, c4, s3);
+  // K5's shapes: K5's layout in closed form (a choice made in a loop would
+  // hold its offsets in registers the V6 schedule does not have)
+  const Layout L = G ? layout(c2, c4, s3) : layout_at(c2, c4, s3, CC, PLANE_BYTES);
   T* zs = reinterpret_cast<T*>(smem + L.zs);
   T* v3 = reinterpret_cast<T*>(smem + L.v3);
   int* zrow0 = reinterpret_cast<int*>(smem + L.ints);  // [NA][KW]
@@ -286,7 +319,7 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
   const uint32_t wfull = agl::smem_u32(smem + L.bars + 2 * STAGES * 8);
   const uint32_t wempty = wfull + 8;
   T* w3z = reinterpret_cast<T*>(smem + L.w3z);
-  const int nslices = KW * c2 / KS, nchunks = c4 / CC;
+  const int nslices = KW * c2 / KS, nchunks = (c4 + CC - 1) / CC;  // a last chunk may hold 16
 
   if (tid == 0) {
     for (int st = 0; st < STAGES; ++st) {
@@ -435,21 +468,30 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
   //   - V3 has a zero row and zero columns 14, 15 for the types outside
   //     [0, 14), so the expansion selects nothing;
   //   - the output rows of one channel and row type are equal: the 15 row
-  //     types of the chunk's channels are expanded along x once, 8 two-byte gathers a 16-byte vector with the thread's 8
-  //     column offsets in registers, and every output row is then a copy of
-  //     one of them, 16 bytes a load and a store, into a staging buffer of a
-  //     few channels' planes (a piece, 16 KB);
+  //     types of a group of the chunk's channels (all 32 where shared memory
+  //     allows, `Layout::ech`) are expanded along x once, 8 two-byte gathers
+  //     a 16-byte vector with the thread's 8 column offsets in registers, and
+  //     every output row is then a copy of one of them, 16 bytes a load and a
+  //     store, into a staging buffer of a few channels' planes (a piece, 16 KB
+  //     or, where shared memory is short, 8 KB);
   //   - each piece leaves as one copy by the copy engine while the next is
   //     written: the warps do not wait for the 671 MB to drain, which stores
   //     from registers made them do.
+  // Any s3 % 8 == 0: an output row index is split into (channel, y) by a
+  // multiplication (`s3inv`), and where s3 / 8 does not divide the 96 threads
+  // the last few skip the row loops. A last chunk of 16 channels (c4 % 32 ==
+  // 16) multiplies zero weights in its upper half and expands its 16 alone.
   constexpr int ET = 32 * EPILOGUE, U = 4;
   const int et = tid - 32 * CONSUMERS;
   float* abs_ = reinterpret_cast<float*>(smem + L.ab);
   const int xv = s3 / 8, x8 = et % xv, rstep = ET / xv;  // a thread keeps one 16-byte column group
-  const int ls3 = 31 - __clz(s3);                        // s3 is a power of two
+  const int rfirst = et < rstep * xv ? et / xv : 1 << 30;  // this thread's first row, if any
+  const uint32_t s3inv = 0xffffffffu / s3 + 1;  // r / s3 == __umulhi(r, s3inv) for r < 2^16
+  const int ls3 = 31 - __clz(s3);               // ... == r >> ls3 where s3 is a power of two
   char* erows = reinterpret_cast<char*>(smem + L.erows);
+  const int ech = L.ech;
   int sch = CC;  // channels a piece
-  while (sch * s3 * s3 * 2 > PLANE_BYTES) sch >>= 1;
+  while (sch * s3 * s3 * 2 > L.plane) sch >>= 1;
   auto pack2 = [](T lo, T hi) {
     const __nv_bfloat162 h = __halves2bfloat162(lo, hi);
     return *reinterpret_cast<const uint32_t*>(&h);
@@ -477,6 +519,7 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
     for (int ch = 0; ch < nchunks; ++ch, ++q) {
       const float* a3 = abs_ + ch * CC;
       const float* b3 = a3 + c4;
+      const int cch = G && c4 - ch * CC < CC ? c4 - ch * CC : CC;  // the chunk's channels
       agl::mbar_wait(wfull, q & 1);
       const T* ws = w3z;
       constexpr int ITEMS = NA * NA * (CC / 8);  // item: (a, bcol, 8 channels)
@@ -505,7 +548,7 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
         }
 #pragma unroll
         for (int u = 0; u < 2; ++u)
-          if (i0 + u * ET < items)
+          if (i0 + u * ET < items && (!G || (i0 + u * ET) % (CC / 8) * 8 < cch))
 #pragma unroll
             for (int e = 0; e < 8; ++e) {
               float sum = 0.f;
@@ -517,58 +560,68 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
       }
       agl::named_barrier(2, ET);  // V3 is whole, and nobody reads this W3z any more
       if (et == 0) agl::mbar_arrive(wempty);
-      // the chunk's row types (ci, a), a = 14 the zero row, along x: row j of
-      // `erows` is V3 row j gathered at this thread's columns
-      // (v6: the present types and the zero row only, jc = slot * CC + ci)
-      const int nrows = V6 ? CC * (tcount + 1) : CC * V3A;
-      auto vrow = [&](int jc) {
-        if constexpr (V6) {
-          const int slot = jc / CC;
-          return (jc % CC) * V3A + (slot < tcount ? type_at(types, slot) : NA);
-        } else {
-          return jc;
-        }
-      };
-      for (int j = et / xv; j < nrows; j += rstep * U) {
-        uint4 v[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int ju = vrow(j + u * rstep < nrows ? j + u * rstep : j);
-          const char* src = reinterpret_cast<const char*>(v3) + ju * (V3B * 2);
-          T g[8];
-#pragma unroll
-          for (int e = 0; e < 8; ++e) g[e] = *reinterpret_cast<const T*>(src + soff[e]);
-          v[u] = make_uint4(pack2(g[0], g[1]), pack2(g[2], g[3]), pack2(g[4], g[5]), pack2(g[6], g[7]));
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          if (j + u * rstep < nrows)
-            *reinterpret_cast<uint4*>(erows + (vrow(j + u * rstep) * s3 + x8 * 8) * 2) = v[u];
-      }
-      for (int c0 = 0; c0 < CC; c0 += sch, ++piece) {
-        char* plane = reinterpret_cast<char*>(smem + L.rows + (piece & 1) * PLANE_BYTES);
-        if (et == 0) agl::bulk_wait_read<1>();  // the copy before the last has read this buffer
-        agl::named_barrier(2, ET);  // the row types are whole, the staging buffer is free
-        // output rows (ci, y) of the piece: copies of row type (ci, selR[y])
-        for (int row = c0 * s3 + et / xv; row < (c0 + sch) * s3; row += rstep * U) {
+      for (int e0 = 0; e0 < (G ? cch : CC); e0 += (G ? ech : CC)) {
+        // the group's channels, a power of two
+        const int gsz = !G ? CC : cch - e0 < ech ? cch - e0 : ech;
+        const int lg = G ? 31 - __clz(gsz) : 5;
+        // the group's row types (ci, a), a = 14 the zero row, along x: row j
+        // of `erows` is row (ci - e0, a) of V3 gathered at this thread's
+        // columns (v6: the present types and the zero row only, j = slot *
+        // gsz + ci - e0)
+        const int nrows = V6 ? gsz * (tcount + 1) : gsz * V3A;
+        auto erow = [&](int j) {  // (the V3 row, the erows row) of j
+          if constexpr (V6) {
+            const int slot = j >> lg, cl = j & (gsz - 1);
+            const int a = slot < tcount ? type_at(types, slot) : NA;
+            return make_int2((e0 + cl) * V3A + a, cl * V3A + a);
+          } else {
+            return make_int2(e0 * V3A + j, j);
+          }
+        };
+        for (int j = G ? rfirst : et / xv; j < nrows; j += rstep * U) {
           uint4 v[U];
 #pragma unroll
           for (int u = 0; u < U; ++u) {
-            const int ru = row + u * rstep < (c0 + sch) * s3 ? row + u * rstep : row;
-            v[u] = *reinterpret_cast<const uint4*>(
-                erows + (((ru >> ls3) * V3A + sr[ru & (s3 - 1)]) * s3 + x8 * 8) * 2);
+            const int ju = erow(j + u * rstep < nrows ? j + u * rstep : j).x;
+            const char* src = reinterpret_cast<const char*>(v3) + ju * (V3B * 2);
+            T g[8];
+#pragma unroll
+            for (int e = 0; e < 8; ++e) g[e] = *reinterpret_cast<const T*>(src + soff[e]);
+            v[u] = make_uint4(pack2(g[0], g[1]), pack2(g[2], g[3]), pack2(g[4], g[5]), pack2(g[6], g[7]));
           }
 #pragma unroll
           for (int u = 0; u < U; ++u)
-            if (row + u * rstep < (c0 + sch) * s3)
-              *reinterpret_cast<uint4*>(plane + ((row + u * rstep - c0 * s3) * s3 + x8 * 8) * 2) = v[u];
+            if (j + u * rstep < nrows)
+              *reinterpret_cast<uint4*>(erows + (erow(j + u * rstep).y * s3 + x8 * 8) * 2) = v[u];
         }
-        agl::fence_proxy_async();   // the copy engine reads what these threads wrote
-        agl::named_barrier(2, ET);  // the piece is whole (after the last: V3 and the row types are free)
-        if (et == 0) {
-          agl::bulk_copy_s2g(out + ((size_t)obj * c4 + ch * CC + c0) * s3 * s3, agl::smem_u32(plane),
-                             sch * s3 * s3 * 2);
-          agl::bulk_commit();
+        const int psz = sch < gsz ? sch : gsz;  // channels a piece
+        for (int c0 = e0; c0 < e0 + gsz; c0 += psz, ++piece) {
+          char* plane = reinterpret_cast<char*>(smem + L.rows + (piece & 1) * L.plane);
+          if (et == 0) agl::bulk_wait_read<1>();  // the copy before the last has read this buffer
+          agl::named_barrier(2, ET);  // the row types are whole, the staging buffer is free
+          // output row r = (ci, y) of the piece: a copy of row type (ci, selR[y])
+          const int nr = psz * s3, cl0 = c0 - e0;
+          for (int r = G ? rfirst : et / xv; r < nr; r += rstep * U) {
+            uint4 v[U];
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+              const int ru = r + u * rstep < nr ? r + u * rstep : r;
+              const int ci = G ? (int)__umulhi(ru, s3inv) : ru >> ls3;
+              const int y = G ? ru - ci * s3 : ru & (s3 - 1);
+              v[u] = *reinterpret_cast<const uint4*>(erows + (((cl0 + ci) * V3A + sr[y]) * s3 + x8 * 8) * 2);
+            }
+#pragma unroll
+            for (int u = 0; u < U; ++u)
+              if (r + u * rstep < nr)
+                *reinterpret_cast<uint4*>(plane + ((r + u * rstep) * s3 + x8 * 8) * 2) = v[u];
+          }
+          agl::fence_proxy_async();   // the copy engine reads what these threads wrote
+          agl::named_barrier(2, ET);  // the piece is whole (after the group's last: the row types are free)
+          if (et == 0) {
+            agl::bulk_copy_s2g(out + ((size_t)obj * c4 + ch * CC + c0) * s3 * s3, agl::smem_u32(plane),
+                               psz * s3 * s3 * 2);
+            agl::bulk_commit();
+          }
         }
       }
     }
@@ -586,11 +639,14 @@ cudaError_t launch(const void* z2, const void* idxR, const void* lsel, const voi
   if (err != cudaSuccess) return err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
-  const int smem = layout(c2, c4, s3).total;
-  err = cudaFuncSetAttribute(typed_c3_expand_tc_kernel<V6>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const Layout l = layout(c2, c4, s3);
+  // the kernel without G places its buffers by layout_at(c2, c4, s3, CC, PLANE_BYTES)
+  const bool general = l.ech != CC || l.plane != PLANE_BYTES || (s3 & (s3 - 1)) ||
+                       (32 * EPILOGUE) % (s3 / 8) || c4 % CC;
+  auto kernel = general ? typed_c3_expand_tc_kernel<V6, true> : typed_c3_expand_tc_kernel<V6, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, l.total);
   if (err != cudaSuccess) return err;
-  typed_c3_expand_tc_kernel<V6><<<n < sms ? n : sms, THREADS, smem, stream>>>(
+  kernel<<<n < sms ? n : sms, THREADS, l.total, stream>>>(
       static_cast<const T*>(z2), static_cast<const int*>(idxR), static_cast<const int*>(lsel),
       static_cast<const int*>(selR), static_cast<const int*>(selC), static_cast<const float*>(ab),
       static_cast<const T*>(wp), static_cast<T*>(out), n, c2, c4, s3);
@@ -602,9 +658,10 @@ cudaError_t launch(const void* z2, const void* idxR, const void* lsel, const voi
 }  // namespace
 
 // f32: wk is (c4, KW, KW * c2), rows (C, w), columns (h, c); c2 % 16 == 0, c4 % 8
-// == 0, s3 % 8 == 0. bf16: wk is the packed (c4 / 32, 4 c2 / 64, 128, 64) operand;
-// c2 % 16 == 0, c4 % 32 == 0, s3 a power of two in 8 .. 64. Returns the launch's
-// cudaError_t.
+// == 0, s3 % 8 == 0. bf16: wk is the packed (ceil(c4 / 32), 4 c2 / 64, 128, 64)
+// operand; c2 % 16 == 0, c4 % 16 == 0, s3 % 8 == 0 and typed_c3_expand_smem(c2,
+// c4, s3) within a block's shared memory. Returns the launch's cudaError_t. The
+// launch of typed_c3_expand_v5 too: its schedule is this kernel's.
 extern "C" int typed_c3_expand(const void* z2, const void* idxR, const void* lsel,
                                const void* selR, const void* selC, const void* ab, const void* wk,
                                void* out, int n, int c2, int c4, int s3, int is_bf16,

@@ -59,12 +59,10 @@ SIGNATURES = {
     "typed_c3_expand_v6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # z2p, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, group, is_bf16, stream
     "typed_c3_expand_v3": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # z2, idxR, lsel, selR, selC, ab, wk, w3z, out, n, c2, c4, s3, is_bf16, stream
-    "typed_c3_expand_v5": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, wp, sw, amax, q, out, B, Cin, Cout, k, gb, is_bf16, stream
     "conv_small_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, a_tab, b_tab, wq, sw, ymax, out, B, C, H, W, f, cb, is_bf16, stream
-    "spade_c6_int8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, a_tab, b_tab, wp, sw, ymax, q, out, B, C, H, W, f, is_bf16, stream
+    "spade_c6_int8": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 

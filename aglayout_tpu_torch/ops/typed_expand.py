@@ -18,12 +18,13 @@ idxR == 12 and lsel >= 12 stand for taps outside the image (zero).
 V3 to device memory.
 
 The JAX module's other three kernels are three more schedules of the same
-function, each a kernel of its own here:
+function:
   * `typed_c3_expand_v3` (`csrc/typed_c3_expand_v3.cu`): the zero-padded
     (n, 13, 13, c2) grid, a group of objects per block sharing one chunk of
     the c3 weights; an op no model path calls, as in JAX;
-  * `typed_c3_expand_v5` (`csrc/typed_c3_expand_v5.cu`): W3z of all objects
-    as one GEMM through a device scratch, then one pass for the rest;
+  * `typed_c3_expand_v5` (`csrc/typed_c3_expand.cu`): one product over all
+    row types of an object, which is what K5's kernel does: it launches that
+    kernel as it is, and equals `typed_c3_expand` bit for bit;
   * `typed_c3_expand_v6` (`csrc/typed_c3_expand.cu`, the same kernel on
     another schedule): W3z only for the row types an object's output rows
     have, their rows compacted, so that a warpgroup without any skips the
@@ -47,8 +48,10 @@ NA = 14  # window types per axis on the c3 output grid
 NZ = 12  # c2 types per axis
 NL = 13  # c2 types per axis of the zero-padded grid `typed_c3_expand_v3` takes
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
-_CHUNK = {torch.bfloat16: 32, torch.float32: 8}  # output channels per chunk in the kernel
-_CHUNK_V5 = {torch.bfloat16: 64, torch.float32: 64}  # ... in stage 2 of `csrc/typed_c3_expand_v5.cu`
+# the output channels the kernels' chunks divide: K5 in bf16 multiplies
+# chunks of 32 and takes a last one of 16, in f32 chunks of 8; v3's of 32
+_CHUNK = {torch.bfloat16: 16, torch.float32: 8}
+_CHUNK_V3 = {torch.bfloat16: 32, torch.float32: 8}
 
 
 def typed_c3_inputs_from_windows(idxR, winKC, sel3R, sel3C):
@@ -112,7 +115,7 @@ typed_c3_expand_v5_plain = typed_c3_expand_plain
 typed_c3_expand_v6_plain = typed_c3_expand_plain
 
 
-def _check(name, z2, idxR, lsel, selR, selC, ab, weight, nl=NZ, c2_mult=16, chunk=_CHUNK):
+def _check(name, z2, idxR, lsel, selR, selC, ab, weight, nl=NZ, chunk=_CHUNK):
     """Device, dtype, shape, contiguity and alignment checks shared by the
     four wrappers; returns (n, c2, c4, s3). nl: the grid's side; chunk: the
     kernel's output channels per chunk, by dtype."""
@@ -122,7 +125,7 @@ def _check(name, z2, idxR, lsel, selR, selC, ab, weight, nl=NZ, c2_mult=16, chun
         raise ValueError(f"{name}: dtype {z2.dtype} not supported")
     n, c2 = z2.shape[0], z2.shape[-1]
     c4, s3 = weight.shape[0], selR.shape[-1]
-    if z2.shape != (n, nl, nl, c2) or c2 % c2_mult or n < 1:
+    if z2.shape != (n, nl, nl, c2) or c2 % 16 or n < 1:
         raise ValueError(f"{name}: z2 shape {tuple(z2.shape)} not supported")
     if weight.shape != (c4, c2, 4, 4) or c4 % chunk[z2.dtype]:
         raise ValueError(f"{name}: weight shape {tuple(weight.shape)} not supported")
@@ -146,25 +149,39 @@ def _check(name, z2, idxR, lsel, selR, selC, ab, weight, nl=NZ, c2_mult=16, chun
     return n, c2, c4, s3
 
 
-def typed_tc_smem(c2: int, c4: int, s3: int) -> int:
-    """Bytes of shared memory of a block of the bf16 kernel of
-    `csrc/typed_c3_expand.cu`, as its `tc::layout` computes them: the
-    3-stage weight ring, the grid tile, W3z, V3, the row types, the output
-    staging, the affine and the index tables. No CUDA call."""
-    align16 = lambda v: (v + 15) // 16 * 16  # noqa: E731
+def typed_tc_layout(c2: int, c4: int, s3: int):
+    """(channels whose row types are held at a time, bytes of a staging
+    buffer, bytes of shared memory) of a block of the bf16 kernel of
+    `csrc/typed_c3_expand.cu`, as its `tc::layout` chooses them: the 3-stage
+    weight ring, the grid tile, W3z, V3, the row types of a channel group,
+    two output staging buffers, the affine and the index tables; K5's own
+    group of 32 channels and 16 KB buffers wherever they fit, else the
+    largest that do. Where nothing fits, the size is one byte past the
+    limit. No CUDA call."""
     zs = 1024 + 3 * 128 * 64 * 2
-    w3z = zs + align16((NZ * NZ + 1) * (c2 + 8) * 2)
-    erows = w3z + NA * NZ * 136 * 2 + 32 * (NA + 1) * 16 * 2
-    ab = erows + 32 * (NA + 1) * s3 * 2 + 2 * 16384
-    return ab + 2 * c4 * 4 + (2 * NA * 4 + s3) * 4
+    rows = zs + (NZ * NZ + 1) * (c2 + 8) * 2 + 15 & ~15  # the grid tile, 16-byte aligned
+    rows += NA * NZ * 136 * 2 + 32 * (NA + 1) * 16 * 2  # W3z, V3
+    fixed = 2 * c4 * 4 + (2 * NA * 4 + s3) * 4  # the affine, the index tables
+    for plane in (16384, 8192):
+        for ech in (32, 16, 8):
+            total = rows + ech * (NA + 1) * s3 * 2 + 2 * plane + fixed
+            if total <= build.SMEM_LIMIT and 2 * s3 * s3 <= plane:
+                return ech, plane, total
+    return 8, 8192, build.SMEM_LIMIT + 1
 
 
-def _shapes_ok(z2, weight, s3: int, nl: int, c2_mult: int, chunk) -> bool:
+def typed_tc_smem(c2: int, c4: int, s3: int) -> int:
+    """The bytes of `typed_tc_layout`: what `typed_c3_expand_smem` of the
+    library returns."""
+    return typed_tc_layout(c2, c4, s3)[2]
+
+
+def _shapes_ok(z2, weight, s3: int, nl: int, chunk) -> bool:
     """The shape, dtype and alignment limits of `_check`, as a predicate."""
     if z2.dtype not in _DTYPES or z2.dim() != 4:
         return False
     n, c2, c4 = z2.shape[0], z2.shape[-1], weight.shape[0]
-    return (tuple(z2.shape) == (n, nl, nl, c2) and n >= 1 and c2 % c2_mult == 0
+    return (tuple(z2.shape) == (n, nl, nl, c2) and n >= 1 and c2 % 16 == 0
             and tuple(weight.shape) == (c4, c2, 4, 4) and c4 % chunk[z2.dtype] == 0
             and s3 % 8 == 0 and z2.data_ptr() % 16 == 0)
 
@@ -172,30 +189,23 @@ def _shapes_ok(z2, weight, s3: int, nl: int, c2_mult: int, chunk) -> bool:
 def typed_c3_expand_supports(z2, weight, s3: int) -> bool:
     """Whether the kernel of `typed_c3_expand` takes the (n, 12, 12, c2)
     grid, the (c4, c2, 4, 4) weight and an s3 x s3 output: c2 % 16 == 0, c4
-    a multiple of the chunk (32 in bf16, 8 in f32), s3 % 8 == 0, z2 16-byte
-    aligned; in bf16 also s3 in (8, 16, 32, 64) and the block's shared
-    memory. A pure function of shapes, dtype and alignment."""
-    if not _shapes_ok(z2, weight, s3, NZ, 16, _CHUNK):
+    % 16 == 0 in bf16 and % 8 in f32, s3 % 8 == 0, z2 16-byte aligned; in
+    bf16 also the block's shared memory (`typed_tc_smem`: at s3 = 32 and c4
+    = 2 c2, c2 up to 304). A pure function of shapes, dtype and alignment."""
+    if not _shapes_ok(z2, weight, s3, NZ, _CHUNK):
         return False
     return z2.dtype != torch.bfloat16 or (
-        s3 in (8, 16, 32, 64)
-        and typed_tc_smem(z2.shape[-1], weight.shape[0], s3) <= build.SMEM_LIMIT)
+        typed_tc_smem(z2.shape[-1], weight.shape[0], s3) <= build.SMEM_LIMIT)
 
 
 def typed_c3_expand_v3_supports(z2p, weight, s3: int) -> bool:
     """The same for `typed_c3_expand_v3` on the padded (n, 13, 13, c2) grid."""
-    return _shapes_ok(z2p, weight, s3, NL, 16, _CHUNK)
+    return _shapes_ok(z2p, weight, s3, NL, _CHUNK_V3)
 
 
-def typed_c3_expand_v5_supports(z2, weight, s3: int) -> bool:
-    """The same for `typed_c3_expand_v5`: c2 % 32 == 0, c4 % 64 == 0."""
-    return _shapes_ok(z2, weight, s3, NZ, 32, _CHUNK_V5)
-
-
-def typed_c3_expand_v6_supports(z2, weight, s3: int) -> bool:
-    """The same for `typed_c3_expand_v6`, which runs `typed_c3_expand`'s
-    kernel: its limits."""
-    return typed_c3_expand_supports(z2, weight, s3)
+# v5 and v6 run `typed_c3_expand`'s kernel: its limits
+typed_c3_expand_v5_supports = typed_c3_expand_supports
+typed_c3_expand_v6_supports = typed_c3_expand_supports
 
 
 def present_row_types(selR):
@@ -269,23 +279,23 @@ def unpack_typed_c3_weights(packed):
     return wk.permute(0, 2, 4, 3, 1).reshape(nch * 32, c2, 4, 4)
 
 
-def _typed_tc(name, z2, idxR, lsel, selR, selC, ab, weight):
-    """The launch shared by `typed_c3_expand` and `typed_c3_expand_v6`, the
-    two schedules of the kernel of `csrc/typed_c3_expand.cu`."""
+def _typed_tc(name, z2, idxR, lsel, selR, selC, ab, weight, fn=None):
+    """The launch shared by `typed_c3_expand`, `typed_c3_expand_v5` and
+    `typed_c3_expand_v6`, the schedules of the kernel of
+    `csrc/typed_c3_expand.cu`; fn: the library function, if not `name`."""
     n, c2, c4, s3 = _check(name, z2, idxR, lsel, selR, selC, ab, weight)
     if z2.dtype == torch.bfloat16:
-        if s3 not in (8, 16, 32, 64):
-            raise ValueError(f"{name}: the bf16 kernel takes s3 in (8, 16, 32, 64) (its "
-                             f"epilogue's shifts and 16 KB output pieces), got s3={s3}")
         smem = typed_tc_smem(c2, c4, s3)
         if smem > build.SMEM_LIMIT:
-            raise ValueError(f"{name}: c2={c2}, c4={c4}, s3={s3} needs {smem} bytes of "
-                             f"shared memory, a block has {build.SMEM_LIMIT}")
+            raise ValueError(f"{name}: c2={c2}, c4={c4}, s3={s3} needs more than "
+                             f"{build.SMEM_LIMIT} bytes of shared memory, a block's")
+        if c4 % 32:  # a last chunk of 16 channels: its upper half multiplies zeros
+            weight = torch.cat([weight, weight.new_zeros(16, *weight.shape[1:])])
         wk = pack_typed_c3_weights(weight, z2.dtype)
     else:
         wk = weight.to(z2.dtype).permute(0, 3, 2, 1).contiguous()  # (C, w, h, c)
     out = torch.empty((n, c4, s3, s3), dtype=z2.dtype, device=z2.device)
-    _launch(name, z2, idxR, lsel, selR, selC, ab, wk, (out.data_ptr(),), n, c2, c4, s3)
+    _launch(fn or name, z2, idxR, lsel, selR, selC, ab, wk, (out.data_ptr(),), n, c2, c4, s3)
     return out
 
 
@@ -297,8 +307,8 @@ def typed_c3_expand(z2, idxR, lsel, selR, selC, ab, weight):
     `csrc/typed_c3_expand.cu` or raises: in bf16 one persistent block an SM
     whose warps share out the weight copies, the product and the expansion
     (weights from `pack_typed_c3_weights`); in f32 one block an object on
-    FMAs. A c2 whose tiles exceed a block's shared memory is refused with a
-    ValueError in bf16 (c2 > 176) and by the launch in f32.
+    FMAs. Shapes whose tiles exceed a block's shared memory are refused with
+    a ValueError in bf16 (`typed_tc_smem`) and by the launch in f32.
     """
     if z2.device.type == "cpu":
         return typed_c3_expand_plain(z2, idxR, lsel, selR, selC, ab, weight)
@@ -320,7 +330,8 @@ def typed_c3_expand_v3(z2p, idxR, lsel, selR, selC, ab, weight, group: int = 8):
     """
     if z2p.device.type == "cpu":
         return typed_c3_expand_v3_plain(z2p, idxR, lsel, selR, selC, ab, weight)
-    n, c2, c4, s3 = _check("typed_c3_expand_v3", z2p, idxR, lsel, selR, selC, ab, weight, nl=NL)
+    n, c2, c4, s3 = _check("typed_c3_expand_v3", z2p, idxR, lsel, selR, selC, ab, weight, nl=NL,
+                           chunk=_CHUNK_V3)
     if group < 1:
         raise ValueError(f"typed_c3_expand_v3: group {group} not supported")
     wk = weight.to(z2p.dtype).permute(0, 3, 2, 1).contiguous()  # (C, w, h, c)
@@ -333,48 +344,19 @@ def typed_c3_expand_v3(z2p, idxR, lsel, selR, selC, ab, weight, group: int = 8):
 
 typed_c3_expand_v3.launches = 0
 
-_w3z_scratch: dict = {}  # device -> the uint8 buffer `typed_c3_expand_v5` keeps
-
-
-def w3z_scratch(nbytes: int, device) -> torch.Tensor:
-    """The device scratch of `typed_c3_expand_v5`, at least `nbytes` long:
-    allocated once per device and reused by every later call (calls on one
-    stream follow each other, so they can share it), regrown when a call
-    needs more. Raises if the card cannot hold it."""
-    device = torch.device(device)
-    if device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    buf = _w3z_scratch.get(device)
-    if buf is None or buf.numel() < nbytes:
-        _w3z_scratch.pop(device, None)
-        del buf  # a smaller buffer goes back to the allocator first
-        free, _ = torch.cuda.mem_get_info(device)
-        cached = torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(device)
-        if nbytes > free + cached:
-            raise RuntimeError(f"typed_c3_expand_v5: the W3z scratch needs {nbytes} bytes, "
-                               f"{free + cached} are free on {device}")
-        buf = _w3z_scratch[device] = torch.empty(nbytes, dtype=torch.uint8, device=device)
-    return buf
-
-
 def typed_c3_expand_v5(z2, idxR, lsel, selR, selC, ab, weight):
-    """`typed_c3_expand`'s function as one GEMM over all n * 168 gathered
-    rows into a device scratch (`w3z_scratch`: n * 168 * 4 c4 values of the
-    compute dtype, 440 MB at n = 1280, c4 = 256 in bf16), then one pass for
-    the column windows, the affine and the expansion.
+    """`typed_c3_expand`'s function as JAX's v5 schedules it, one product
+    over all row types of an object: on the card the kernel of
+    `typed_c3_expand`, whose three warpgroups take all 168 rows (a, l) of an
+    object in one pass, so the two agree bit for bit.
 
-    A CPU tensor takes the plain version. A CUDA tensor launches the two
-    kernels of `csrc/typed_c3_expand_v5.cu` (one launch counted) or raises.
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    of `csrc/typed_c3_expand.cu` or raises.
     """
     if z2.device.type == "cpu":
         return typed_c3_expand_v5_plain(z2, idxR, lsel, selR, selC, ab, weight)
-    n, c2, c4, s3 = _check("typed_c3_expand_v5", z2, idxR, lsel, selR, selC, ab, weight,
-                           c2_mult=32, chunk=_CHUNK_V5)
-    wk = weight.to(z2.dtype).permute(3, 0, 2, 1).contiguous()  # (w, C, h, c)
-    w3z = w3z_scratch(n * NA * NZ * 4 * c4 * z2.element_size(), z2.device)
-    out = torch.empty((n, c4, s3, s3), dtype=z2.dtype, device=z2.device)
-    _launch("typed_c3_expand_v5", z2, idxR, lsel, selR, selC, ab, wk,
-            (w3z.data_ptr(), out.data_ptr()), n, c2, c4, s3)
+    out = _typed_tc("typed_c3_expand_v5", z2, idxR, lsel, selR, selC, ab, weight,
+                    fn="typed_c3_expand")
     typed_c3_expand_v5.launches += 1
     return out
 

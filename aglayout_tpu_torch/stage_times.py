@@ -1,12 +1,13 @@
 """Where the time of the tensor-core kernels goes: the residual trunk (K1),
-the RGB heads (K2 at the c4 head, K3 at the c7 head) and the typed c3
-expansion (K5), as one-off variants of a kernel with a stage cut out, timed
-on the card.
+the RGB heads (K2 at the c4 head, K3 at the c7 head), the typed c3
+expansion (K5) and the int8 convs (K6, K7), as one-off variants of a
+kernel with a stage cut out, timed on the card.
 
-    python3 -m aglayout_tpu_torch.stage_times k1 k2 k3 k5 k5v6 k6
+    python3 -m aglayout_tpu_torch.stage_times k1 k2 k3 k5 k5v5 k5v6 k6 k7
     python3 -m aglayout_tpu_torch.stage_times --csrc <an earlier csrc/> k1_fma k2_fma k3_fma k5_serial
     python3 -m aglayout_tpu_torch.stage_times --csrc <a csrc/ before K6's wgmma kernel> k6_mma_sync
-    python3 -m aglayout_tpu_torch.stage_times --whole [--box] [--csrc <a csrc/>] k5 k5v6 k6
+    python3 -m aglayout_tpu_torch.stage_times --csrc <a csrc/ before K7's wgmma kernel> k5v5_scratch k7_mma_sync
+    python3 -m aglayout_tpu_torch.stage_times --whole [--box] [--csrc <a csrc/>] k5 k5v5 k5v6 k6 k7
 
 Needs one CUDA card and `nvcc`. Each variant is the shipped source with a
 few lines replaced (a call removed, a loop bound set to 0), copied with the
@@ -28,13 +29,18 @@ the one of `csrc/spade_head_tc.cuh`, as `csrc/spade_few_out_conv.cu` builds
 it for the c4 head's flat tables and `csrc/spade_few_out_conv8.cu` for the
 c7 head's compact ones; `k5` the one of `csrc/typed_c3_expand.cu`, and
 `k5v6` the same lines in its v6 instantiation (`typed_c3_expand_v6`, on the
-same random inputs); `k6` the three launches of `csrc/conv_small_int8.cu`
-(the two quantise passes, the wgmma product and its copies). `k1_fma`,
+same random inputs), and `k5v5` the same kernel as `typed_c3_expand_v5`
+launches it; `k6` the three launches of `csrc/conv_small_int8.cu` (the
+two quantise passes, the wgmma product and its copies) and `k7` those of
+`csrc/spade_c6_int8.cu` (the max pass, the apply and quantise pass, the
+wgmma product, its weight and map copies). `k1_fma`,
 `k2_fma`, `k3_fma` and `k5_serial` cut the bf16 kernels those replaced (FMAs
 on the CUDA cores; one block an object, its stages one after the other),
-read with `--csrc` from a checkout that has them; `k6_mma_sync` the
-`mma.sync` kernel K6 replaced, and `k5v6_serial` the one-block-an-object
-v6 kernel K5-v6 replaced, from a `csrc/` that still has them (`EARLIER`).
+read with `--csrc` from a checkout that has them; `k6_mma_sync` and
+`k7_mma_sync` the `mma.sync` kernels K6 and K7 replaced, `k5v6_serial` the
+one-block-an-object v6 kernel K5-v6 replaced and `k5v5_scratch` the
+two-stage v5 kernel whose W3z went through a device scratch, from a `csrc/`
+that still has them (`EARLIER`), whole.
 """
 
 from __future__ import annotations
@@ -88,13 +94,13 @@ K1_SUM = "    for (int j = 0; j < NT; ++j) for (int e = 0; e < 4; ++e) skip[0][0
 K1_NO_EPILOGUES = [("    epilogue1(r);\n", K1_SUM), ("    epilogue2(r);\n", K1_SUM)]
 # ---- of csrc/typed_c3_expand.cu (k5)
 K5_V3 = "      for (int i0 = et; i0 < items; i0 += 2 * ET) {"
-K5_TYPES = "      for (int j = et / xv; j < nrows; j += rstep * U) {"
-K5_PIECES = "      for (int c0 = 0; c0 < CC; c0 += sch, ++piece) {"
-K5_FILL = "        for (int row = c0 * s3 + et / xv; row < (c0 + sch) * s3; row += rstep * U) {"
+K5_TYPES = "        for (int j = G ? rfirst : et / xv; j < nrows; j += rstep * U) {"
+K5_PIECES = "        for (int c0 = e0; c0 < e0 + gsz; c0 += psz, ++piece) {"
+K5_FILL = "          for (int r = G ? rfirst : et / xv; r < nr; r += rstep * U) {"
 K5_WGMMA = ("            wgmma_m64n128k16(acc, cur[kk], wgmma_desc_sw128(bbase + kk * 32), "
             "(sl | kk) != 0);\n")
-K5_COPY = ("          agl::bulk_copy_s2g(out + ((size_t)obj * c4 + ch * CC + c0) * s3 * s3, "
-           "agl::smem_u32(plane),\n                             sch * s3 * s3 * 2);\n")
+K5_COPY = ("            agl::bulk_copy_s2g(out + ((size_t)obj * c4 + ch * CC + c0) * s3 * s3, "
+           "agl::smem_u32(plane),\n                               psz * s3 * s3 * 2);\n")
 
 K5_CUTS = [
     ("whole kernel", []),
@@ -120,7 +126,7 @@ K6_WAIT_W = "    agl::mbar_wait_in_asm(full(wst), wph);\n"
 K6_MAPS = [_zero("    for (int c = 0; c < nchunks; ++c) {"), (K6_WAIT_MAP, "")]
 K6_NO_COPIES = K6_MAPS + [_zero("    for (int sl = 0, st = 0, ph = 0; sl < nslices; ++sl) {"),
                           (K6_WAIT_W, "")]
-K6_WGMMA = "      wgmma_m64n256k32_s8(acc, da, db, s != 0);\n"
+K6_WGMMA = "      agl::wgmma_m64n256k32_s8(acc, da, db, s != 0);\n"
 K6_FREE_MAP = "      agl::mbar_arrive_if(mempty(freed % MSTAGES), lane == 0);\n"
 K6_FREE_W = "      agl::mbar_arrive_if(empty(wst == 0 ? WST - 1 : wst - 1), lane == 0);\n"
 # the consumers' waits and arrivals as the other kernels write them: a C++
@@ -131,6 +137,23 @@ K6_PLAIN_BARRIERS = [
     (K6_FREE_MAP, "      if (lane == 0) agl::mbar_arrive(mempty(freed % MSTAGES));\n"),
     (K6_FREE_W, "      if (lane == 0) agl::mbar_arrive(empty(wst == 0 ? WST - 1 : wst - 1));\n"),
 ]
+# ---- of csrc/spade_c6_int8.cu (k7: the three launches of a call)
+K7_MAX = "  max_kernel<T><<<passes, PASS_THREADS, smem_max, stream>>>(xp, ap, bp, ym, C, H, W, f);\n"
+K7_QUANTISE = ("  quantize_kernel<T><<<passes, PASS_THREADS, smem_q, stream>>>(xp, ap, bp, ym, qp, C, H, W, "
+               "f, HP, WP);\n")
+K7_CONV = ("  conv_kernel<T><<<items < sms ? items : sms, CONV_THREADS, ConvLayout<T>::SMEM, stream>>>(\n"
+           "      qp, static_cast<const int8_t*>(wp), static_cast<const float*>(sw), ym, "
+           "static_cast<T*>(out),\n      B, C, H, W, HP, WP);\n")
+K7_PASSES = [(K7_MAX, ""), (K7_QUANTISE, "")]
+K7_NO_WEIGHTS = [_zero("      for (int sl = 0; sl < nslices; ++sl) {"),
+                 ("      agl::mbar_wait_in_asm(full(wst), wph);\n", "")]
+K7_NO_MAPS = [_zero("      for (int c = 0; c < nch; ++c) {"),
+              ("        agl::mbar_wait_in_asm(mfull(rst), rph);\n", "")]
+K7_WGMMA = "        agl::wgmma_m64n256k32_s8(acc, da, db, sl | j);\n"
+# the bf16 epilogue's stores to device memory predicated off by a test that
+# reads the sums through the tile, which keeps the products
+K7_STORE = "        if (co < C && y0 + row < H && x0 + 8 * h < W)\n"
+K7_NO_STORES = [(K7_STORE, "        if (co < C && y0 + row < H && x0 + 8 * h < W && tile[cl] == 0x7f)\n")]
 # ---- of the parent's csrc/conv_small_int8.cu (k6_mma_sync, with --csrc)
 K6_OLD_CONV = ("  conv_kernel<T><<<dim3(Cout / BN, (B + IM - 1) / IM), THREADS, smem, stream>>>(\n"
                "      qp, static_cast<const int8_t*>(wq), static_cast<const float*>(sw), am,\n"
@@ -169,6 +192,22 @@ VARIANTS = {
         ("the product kernel with mbar_wait and a lane test (no quantise passes)",
          K6_PLAIN_BARRIERS + K6_QUANTISE),
     ]),
+    # v5 launches K5's kernel as it is (ops/typed_expand.typed_c3_expand_v5):
+    # its cuts are K5's, named for the pair with the kernel it replaced
+    "k5v5": ("typed_c3_expand.cu", "typed_c3_expand.cu", "typed_c3_expand", K5_CUTS),
+    "k7": ("spade_c6_int8.cu", "spade_c6_int8.cu", "spade_c6_int8", [
+        ("whole call", []),
+        ("max pass only", [(K7_QUANTISE, ""), (K7_CONV, "")]),
+        ("apply and quantise pass only", [(K7_MAX, ""), (K7_CONV, "")]),
+        ("the product kernel only (no max, no quantise pass)", K7_PASSES),
+        ("product only (no weight or map copies, no passes)", K7_NO_WEIGHTS + K7_NO_MAPS + K7_PASSES),
+        ("no weight copies (map copies, no passes)", K7_NO_WEIGHTS + K7_PASSES),
+        ("weight copies only (no product, no map copies, no passes)",
+         K7_NO_MAPS + [(K7_WGMMA, "")] + K7_PASSES),
+        ("no output stores (no passes)", K7_NO_STORES + K7_PASSES),
+        ("product only, no output stores (no copies, no passes)",
+         K7_NO_WEIGHTS + K7_NO_MAPS + K7_NO_STORES + K7_PASSES),
+    ]),
     # the bf16 kernels K1, K2, K3 and K5 replaced, from a checkout that has
     # them (--csrc): the FMA kernels of K1 and K2 still ship for f32 and the
     # shapes the tensor cores do not take, but no longer run in bf16 at these
@@ -198,6 +237,12 @@ VARIANTS = {
         ("the two quantise passes only", [(K6_OLD_CONV, "")]),
         ("the product kernel only (no quantise passes)", K6_OLD_QUANTISE),
     ]),
+    # the two-stage v5 kernel (W3z through a device scratch) K5-v5's move
+    # onto K5's kernel replaced, and the mma.sync K7 the wgmma one replaced:
+    # in an earlier csrc/ only (EARLIER)
+    "k5v5_scratch": ("typed_c3_expand_v5.cu", "typed_c3_expand_v5.cu", "typed_c3_expand_v5",
+                     [("whole kernel", [])]),
+    "k7_mma_sync": ("spade_c6_int8.cu", "spade_c6_int8.cu", "spade_c6_int8", [("whole call", [])]),
     # the v6 kernel K5-v6 replaced: its source is gone from this csrc/ (EARLIER)
     "k5v6_serial": ("typed_c3_expand_v6.cu", "typed_c3_expand_v6.cu", "typed_c3_expand_v6",
                     [("whole kernel", [])]),
@@ -215,9 +260,11 @@ VARIANTS = {
 # the kernels whose lines are only in an earlier csrc/ (run with --csrc), and
 # the C signature of that generation of the source
 EARLIER = {"k6_mma_sync": [build._P] * 6 + [build._I] * 7 + [build._P],
-           "k5v6_serial": build.SIGNATURES["typed_c3_expand_v6"]}
+           "k5v6_serial": build.SIGNATURES["typed_c3_expand_v6"],
+           "k5v5_scratch": [build._P] * 9 + [build._I] * 5 + [build._P],
+           "k7_mma_sync": [build._P] * 7 + [build._I] * 7 + [build._P]}
 # hand-written launches a call of the whole kernel, where more than one
-LAUNCHES = {"k6": 3, "k6_mma_sync": 3}
+LAUNCHES = {"k6": 3, "k6_mma_sync": 3, "k5v5_scratch": 2, "k7": 3, "k7_mma_sync": 2}
 
 
 def patched(text: str, repl, what: str) -> str:
@@ -313,14 +360,33 @@ def _operands(kernel: str, box: bool = False):
             else:
                 keep = (x, conv8_int8.pack_conv_small_int8_weights(wq), sw, amax, q, out)
                 tail = (b, cin, cout, k, gb, 1, stream)
+        elif kernel.startswith("k7"):
+            from aglayout_tpu_torch.ops import conv8_int8, spade_c6_int8
+
+            x, a_tab, b_tab, wq, sw = cs.c6_inputs(model.decoder, dt, gen, dev)
+            b, c, h, w = x.shape
+            ymax = torch.zeros(b, dtype=torch.int32, device=dev)
+            out = torch.empty_like(x)
+            if kernel == "k7_mma_sync":
+                keep = (x, a_tab, b_tab, wq, sw, ymax, out)
+            else:
+                q = torch.empty((b, c // 16, *spade_c6_int8.padded_hw(h, w), 16), dtype=torch.int8,
+                                device=dev)
+                keep = (x, a_tab, b_tab, conv8_int8.pack_conv_small_int8_weights(wq), sw, ymax, q, out)
+            tail = (b, c, h, w, 16, *([16] if kernel == "k7_mma_sync" else []), 1, stream)
         else:
             inputs = cs.box_typed_inputs(model) if box else cs.typed_inputs(model, dt, gen, dev)
             z2, idxR, lsel, selR, selC, ab, weight = inputs
             n, c2, c4, s3 = z2.shape[0], z2.shape[-1], weight.shape[0], selR.shape[-1]
-            wk = (weight.to(dt).permute(0, 3, 2, 1).contiguous() if kernel.endswith("_serial")
-                  else typed_expand.pack_typed_c3_weights(weight, dt))
             out = torch.empty((n, c4, s3, s3), dtype=dt, device=dev)
-            keep = (z2, idxR, lsel, selR, selC, ab, wk, out)
+            if kernel == "k5v5_scratch":  # (w, C, h, c) weights and the W3z scratch
+                wk = weight.to(dt).permute(3, 0, 2, 1).contiguous()
+                w3z = torch.empty(n * 14 * 12 * 4 * c4, dtype=dt, device=dev)
+                keep = (z2, idxR, lsel, selR, selC, ab, wk, w3z, out)
+            else:
+                wk = (weight.to(dt).permute(0, 3, 2, 1).contiguous() if kernel.endswith("_serial")
+                      else typed_expand.pack_typed_c3_weights(weight, dt))
+                keep = (z2, idxR, lsel, selR, selC, ab, wk, out)
             tail = (n, c2, c4, s3, 1, stream)
     return keep, (*(t.data_ptr() for t in keep), *tail)
 
@@ -347,7 +413,8 @@ def run(kernel: str, csrc: Path, whole: bool = False, box: bool = False) -> dict
     times = {}
     for i, ((name, _), (_, lib)) in enumerate(zip(variants, builds)):
         fn = getattr(ctypes.CDLL(str(lib)), fn_name)
-        fn.argtypes, fn.restype = EARLIER.get(kernel, build.SIGNATURES[fn_name]), ctypes.c_int
+        sig = EARLIER[kernel] if kernel in EARLIER else build.SIGNATURES[fn_name]
+        fn.argtypes, fn.restype = sig, ctypes.c_int
         for label in labels[:1 if i else None]:  # the cuts on the random inputs only
             args = operands[label][1]
 

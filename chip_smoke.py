@@ -39,7 +39,8 @@ raises, and the run then exits non-zero without printing a result:
      bit; the tensor-core kernels (K1, K2, K3, K5) also in bf16 at the
      small model's widths, which the f32 reference phase does not send
      through them; K6 and K7 must equal their plain versions to 1e-6
-     in f32, their integer sums being exact; timed with CUDA events (the
+     in f32, their integer sums being exact, and K7 bit for bit in both
+     dtypes (with c6's weights packed once); timed with CUDA events (the
      span of 20 calls, the host's gaps included) and, in bf16, by the
      device time of their launches under torch.profiler, which the kernels
      line reports, beside the bound computed from the shapes and, for v6,
@@ -57,7 +58,14 @@ raises, and the run then exits non-zero without printing a result:
      next route (the FMA kernels of K1 and K2, K2 for the c7 head, the
      plain typed expansion), against the f32 plain path on the CPU; and
      64^2 with `int8_serving` at conv_dim=60 (f32, B=4), whose 600 -> 480
-     gate conv K6 must take, against the CPU.
+     gate conv K6 must take, against the CPU;
+ 10. wide typed: 128^2 generate at conv_dim=96 (bf16, B=4), a typed grid
+     K5's kernel takes since it was widened, with `typed_c3` v4, v5 and v6:
+     each route is its kernel, launched once, and the image is held against
+     kernels off and f32 on the CPU with the conv_dim=12 limits; then the
+     three kernels alone at that shape, on the path's inputs and on random
+     ones at B=128, against the plain expansion (2e-2) and v5, v6 against
+     v4 bit for bit.
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -99,7 +107,7 @@ SOURCES = {
                       "aglayout_tpu/ops/pallas_spade_conv.py:613"),
     "typed_c3_expand_v3": ("aglayout_tpu_torch/csrc/typed_c3_expand_v3.cu",
                            "aglayout_tpu/ops/pallas_typed_expand.py:148"),
-    "typed_c3_expand_v5": ("aglayout_tpu_torch/csrc/typed_c3_expand_v5.cu",
+    "typed_c3_expand_v5": ("aglayout_tpu_torch/csrc/typed_c3_expand.cu",
                            "aglayout_tpu/ops/pallas_typed_expand.py:520"),
     "typed_c3_expand_v6": ("aglayout_tpu_torch/csrc/typed_c3_expand.cu",
                            "aglayout_tpu/ops/pallas_typed_expand.py:680"),
@@ -126,9 +134,9 @@ VARIANTS = (
      {**PATH128, "spade_few_out_conv8": 0, K2: 2}, None),
 )
 # the hand-written kernels a wrapper launches each time it counts one launch
-# (the quantise passes and the product; the max pass and the conv; v5's two
-# stages), where more than one
-OURS = {"conv_small_int8": 3, "spade_c6_int8": 2, "typed_c3_expand_v5": 2}
+# (the quantise passes and the product; the max pass, the quantise pass and
+# the product), where more than one
+OURS = {"conv_small_int8": 3, "spade_c6_int8": 3}
 # the wrappers that pick between a tensor-core and an FMA kernel by shape
 ROUTED = ("residual_trunk", K2)
 SWITCHES = ("use_trunk_kernel", "use_head_kernel", "use_typed_kernel", "use_apply_kernel",
@@ -342,7 +350,9 @@ def phase_build():
         if compact:
             sizes.append((py, lib.spade_few_out_conv8_smem(h, w, k, o, f)))
     sizes += [(typed_expand.typed_tc_smem(c2, c4, s3), lib.typed_c3_expand_smem(c2, c4, s3))
-              for c2, c4, s3 in ((128, 256, 32), (32, 64, 32), (176, 64, 16))]
+              for c2, c4, s3 in ((128, 256, 32), (32, 64, 32), (176, 64, 16), (192, 384, 32),
+                                 (256, 512, 32), (128, 256, 64), (128, 256, 24), (48, 80, 24),
+                                 (256, 512, 64), (272, 544, 16), (256, 1024, 16), (320, 640, 32))]
     if any(py != c for py, c in sizes):
         raise AssertionError(f"shared memory, Python against the library: {sizes}")
     log(f"[build] the tensor-core kernels' shared memory: Python's sizes equal the library's "
@@ -566,7 +576,8 @@ def phase_kernels(model64, model128, model_int8):
     import torch.nn.functional as F
 
     from aglayout_tpu_torch.ops import typed_expand as te
-    from aglayout_tpu_torch.ops.conv8_int8 import conv_small_int8_plain
+    from aglayout_tpu_torch.ops.conv8_int8 import conv_small_int8_plain, pack_conv_small_int8_weights
+    from aglayout_tpu_torch.ops.int8 import quantize_conv_weights
     from aglayout_tpu_torch.ops.resblocks import residual_trunk_plain
     from aglayout_tpu_torch.ops.spade_c6_int8 import spade_c6_int8_plain
     from aglayout_tpu_torch.ops.spade_conv import (
@@ -583,6 +594,9 @@ def phase_kernels(model64, model128, model_int8):
     cell0 = model_int8.layout_encoder.clstm.cell_list[0]
     # the gate conv's weights packed once, as `LayoutFuser` packs them a forward
     k6 = functools.partial(k["conv_small_int8"], packed=cell0.quantized_weights()[2])
+    # c6's weights packed once, as a caller of K7 would pack them for all its calls
+    k7 = functools.partial(k["spade_c6_int8"], f=16,
+                           packed=pack_conv_small_int8_weights(quantize_conv_weights(dec128.c6.weight)[0]))
     # tolerance on max|err| / max|plain|: f32 only differs in summation
     # order; in bf16 the intermediates are rounded to bf16 on both sides, so
     # an order difference can flip a rounding (one bf16 ulp is 2^-8).
@@ -624,7 +638,7 @@ def phase_kernels(model64, model128, model_int8):
         ("conv_small_int8", k6, conv_small_int8_plain,
          lambda dt: gate_inputs(cell0, dt, gen, dev),
          lambda a: (conv_ops(a[0], a[1], a[1].shape[0]), INT8)),
-        ("spade_c6_int8", functools.partial(k["spade_c6_int8"], f=16),
+        ("spade_c6_int8", k7,
          functools.partial(spade_c6_int8_plain, f=16), lambda dt: c6_inputs(dec128, dt, gen, dev),
          lambda a: (conv_ops(a[0], a[3], a[3].shape[0]), INT8)),
         ("spade_apply_t", functools.partial(k["spade_apply_t"], f=16),
@@ -676,6 +690,8 @@ def phase_kernels(model64, model128, model_int8):
                 f"{'' if on_device is None else f'; kernel on the device {on_device:.4f} ms'}")
             if not torch.isfinite(got.float()).all() or rel > limit:
                 raise AssertionError(f"{name} {dt}: kernel disagrees with its plain version")
+            if name == "spade_c6_int8" and not torch.equal(got, want):
+                raise AssertionError(f"{name} {dt}: not its plain version's bits")
             if dt == torch.bfloat16:
                 bound_ms, bound_by = bound(args, got, *work(args))
                 log(f"[kernel] {name} bf16: bound {bound_ms:.4f} ms by {bound_by}, "
@@ -942,6 +958,91 @@ def phase_fallthrough(size: int):
             raise AssertionError(f"fall-through {size}: {name} disagree")
 
 
+def phase_wide_typed():
+    """128^2 generate at conv_dim=96 (bf16, B=4) with `typed_c3` v4, v5 and
+    v6: the typed grid is c2 = 192 wide and c3 has c4 = 384 channels, past
+    what K5's kernel took before this slice (its grid tile, row types and
+    staging now sized to fit). Each variant's route must be its kernel, which
+    must launch once (and the other typed kernels not at all); the image is
+    held against the same model with the kernels off and against f32 on the
+    CPU, with the conv_dim=12 limits (max 5e-2, mean 3e-2). Then the three
+    kernels alone at that shape (`wide_typed_kernels`)."""
+    from aglayout_tpu_torch.bench import layouts
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.models import build_generator
+    from aglayout_tpu_torch.ops import typed_expand as te
+
+    typed = {"v4": "typed_c3_expand", "v5": "typed_c3_expand_v5", "v6": "typed_c3_expand_v6"}
+    ins = layouts(config_for(128, conv_dim=96), 4, O, seed=5, device="cpu")
+    seen, kernel = [], te.VARIANTS["v4"]
+    with torch.no_grad():
+        want = build_generator(config_for(128, conv_dim=96), "cpu", seed=5).generate(*ins)
+        for variant, name in typed.items():
+            model = build_generator(config_for(128, conv_dim=96, bf16=True, typed_c3=variant), "cuda",
+                                    seed=5)
+            grid = torch.zeros(4, 12, 12, 192, dtype=torch.bfloat16, device="cuda")
+            route = model.layout_encoder.typed_route(grid, 32)
+            launch_counts(reset=True)
+            if variant == "v4":  # the path's own inputs of the typed kernel, recorded
+                te.VARIANTS["v4"] = lambda *a: seen.append(a) or kernel(*a)
+            try:
+                img_on = model.generate(*(t.cuda() for t in ins)).float().cpu()
+            finally:
+                te.VARIANTS["v4"] = kernel
+            ran = {n: c for n, c in launch_counts().items() if c and n in typed.values()}
+            set_kernels(model, False)
+            img_off = model.generate(*(t.cuda() for t in ins)).float().cpu()
+            if route != variant or ran != {name: 1}:
+                raise AssertionError(f"conv_dim=96 typed {variant}: route {route!r}, typed launches "
+                                     f"{ran}, expected {name} once")
+            if img_on.shape != (4, 128, 128, 3) or not torch.isfinite(img_on).all():
+                raise AssertionError(f"conv_dim=96 typed {variant}: shape {tuple(img_on.shape)} "
+                                     "or non-finite")
+            for what, got, ref in (("on vs off", img_on, img_off), ("on vs f32 on the CPU", img_on, want)):
+                err, rel = errors(got, ref)
+                mrel = mean_rel(got, ref)
+                log(f"[wide typed] conv_dim=96 128^2 B=4 bf16 typed {variant} ({name} launched once, "
+                    f"route {route}): {what}: max abs err {err:.3e}, rel {rel:.3e} (tol 5e-02), mean "
+                    f"rel {mrel:.3e} (tol 3e-02)")
+                if rel > 5e-2 or mrel > 3e-2:
+                    raise AssertionError(f"conv_dim=96 typed {variant}: {what} disagree")
+            weight = model.layout_encoder.c3.weight
+            del model
+    wide_typed_kernels(seen[0], weight)
+
+
+def wide_typed_kernels(path_args, weight):
+    """K5, v5 and v6 alone at conv_dim=96's shape (c2 192, c4 384, s3 32:
+    16-channel row-type groups, the general epilogue), on the inputs the
+    path gave K5 (B=4) and on random ones over the whole domain at B=128,
+    O=10: each within the kernel tolerance (2e-2 of max |plain|) of
+    `typed_c3_expand_plain`, and v5 and v6 the same bits as v4 (each sums a
+    row in K5's order)."""
+    from aglayout_tpu_torch.ops import typed_expand as te
+
+    gen = torch.Generator().manual_seed(96)
+    n, c2, c4, s3 = B * O, 192, 384, 32
+    i32 = lambda hi, shape: torch.randint(0, hi, shape, generator=gen, dtype=torch.int32).cuda()  # noqa: E731
+    rnd = (torch.randn(n, 12, 12, c2, generator=gen).cuda().to(torch.bfloat16), i32(13, (n, 14, 4)),
+           i32(14, (n, 14, 4)), i32(14, (n, s3)), i32(14, (n, s3)),
+           torch.randn(n, 2, c4, generator=gen).mul(0.5).cuda(), weight)
+    for label, args in (("the path's", path_args), ("random", rnd)):
+        if args[0].shape[-1] != c2 or args[5].shape[-1] != c4 or args[3].shape[-1] != s3:
+            raise AssertionError(f"conv_dim=96: typed inputs of shape {tuple(args[0].shape)}")
+        with torch.no_grad():
+            plain = te.typed_c3_expand_plain(*args)
+            outs = {v: te.VARIANTS[v](*args) for v in ("v4", "v5", "v6")}
+        for v, got in outs.items():
+            err, rel = errors(got, plain)
+            same = torch.equal(got, outs["v4"])
+            log(f"[wide typed] {te.VARIANTS[v].__name__} bf16 at c2 {c2}, c4 {c4}, s3 {s3} on "
+                f"{label} inputs (n {args[0].shape[0]}): max abs err {err:.3e}, rel {rel:.3e} "
+                f"(tol 2e-2){', bits equal to v4' if same else ''}")
+            if rel > 2e-2 or not torch.isfinite(got).all() or not same:
+                raise AssertionError(f"conv_dim=96 typed {v} on {label} inputs: {rel:.3e} from the "
+                                     "plain version, or not v4's bits")
+
+
 def phase_fallthrough_int8():
     """`int8_serving` at conv_dim=60 (64^2, B=4, f32): the wide ConvLSTM
     layer's gate conv is 600 -> 480, whose 480 output channels are not a
@@ -1002,6 +1103,7 @@ def main() -> int:
     phase_fallthrough(64)
     phase_fallthrough(128)
     phase_fallthrough_int8()
+    phase_wide_typed()
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

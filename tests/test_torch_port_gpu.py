@@ -198,21 +198,25 @@ def test_conv_small_int8_kernel_matches_plain(cuda, dt, b, cin, cout, k):
     assert got.dtype == DT[dt] and torch.equal(got, want)
 
 
+# B 2 to 8, C 128 and 256; a map that is not a whole number of the product's
+# 32 x 16 tiles, and C = 96 (half the last 64-channel tile)
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("b,size,f", [(2, 32, 8), (4, 128, 16)])
-def test_spade_c6_int8_kernel_matches_plain(cuda, dt, b, size, f):
-    """K7 at a small map and at SPADE-4 + c6's shape, batch cut to 4."""
+@pytest.mark.parametrize("b,c,size,f", [(2, 128, 32, 8), (4, 128, 128, 16), (8, 256, 64, 16),
+                                        (3, 256, 32, 8), (5, 96, 40, 8)])
+def test_spade_c6_int8_kernel_matches_plain(cuda, dt, b, c, size, f):
+    """K7 at small maps and at SPADE-4 + c6's shape, batch cut to 4: bit
+    for bit its plain version (exact integer sums, the same f32 products)."""
     g = torch.Generator().manual_seed(8)
-    c, w5 = 128, 5 * size // f
+    w5 = 5 * size // f
     x = torch.randn(b, c, size, size, generator=g).to(cuda, DT[dt])
     a_tab = torch.rand(b, size // f, 5, c, w5, generator=g).add(0.5).to(cuda, DT[dt])
     b_tab = torch.randn(b, size // f, 5, c, w5, generator=g).mul(0.2).to(cuda, DT[dt])
     wq, sw = quantize_conv_weights(torch.randn(c, c, 5, 5, generator=g).mul(0.05).to(cuda))
     before = spade_c6_int8.launches
-    got = spade_c6_int8(x, a_tab, b_tab, wq, sw, f)
+    got = spade_c6_int8(x, a_tab, b_tab, wq, sw, f, packed=pack_conv_small_int8_weights(wq))
     want = spade_c6_int8_plain(x, a_tab, b_tab, wq, sw, f)
     assert spade_c6_int8.launches == before + 1 and got.shape == x.shape
-    assert got.dtype == DT[dt] and _rel(got, want) <= 1e-6
+    assert got.dtype == DT[dt] and torch.equal(got, want)
 
 
 def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
@@ -240,12 +244,18 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     y = torch.zeros(1, 128, 32, 32, device=cuda)
     tab = torch.zeros(1, 4, 5, 128, 20, device=cuda)
     w6q, sw6 = quantize_conv_weights(torch.randn(128, 128, 5, 5).to(cuda))
-    with pytest.raises(ValueError, match="not supported"):
-        spade_c6_int8(y[:, :64].contiguous(), tab[:, :, :, :64].contiguous(), tab, w6q, sw6, 8)
+    with pytest.raises(ValueError, match="not supported"):  # C % 32: the k32 steps' chunks
+        spade_c6_int8(y[:, :48].contiguous(), tab[:, :, :, :48].contiguous(),
+                      tab[:, :, :, :48].contiguous(), w6q[:48, :, :, :48].contiguous(),
+                      sw6[:48].contiguous(), 8)
     with pytest.raises(ValueError, match="tables"):
         spade_c6_int8(y, tab[..., :10].contiguous(), tab, w6q, sw6, 8)
     with pytest.raises(ValueError, match="w6q"):
         spade_c6_int8(y, tab, tab, w6q[:, :3].contiguous(), sw6, 8)
+    with pytest.raises(ValueError, match="takes the weights packed"):
+        spade_c6_int8(y, tab, tab, w6q, sw6, 8)
+    with pytest.raises(ValueError, match="packed weights"):  # packed for other weights
+        spade_c6_int8(y, tab, tab, w6q, sw6, 8, packed=pack_conv_small_int8_weights(w6q[:64, :, :, :64]))
     with pytest.raises(ValueError, match="tables"):
         spade_apply_t(y, tab, tab, 8)  # compact tables where flat ones are due
     assert launches == (conv_small_int8.launches, spade_c6_int8.launches, spade_apply_t.launches)
@@ -384,13 +394,30 @@ def test_int8_serving_at_conv_dim_60_takes_k6(cuda):
     assert _rel(got, want) < 1e-3
 
 
-def test_typed_v5_reuses_its_scratch(cuda):
-    args = _typed_case(cuda, "bf16", 8, seed=12)
-    typed_expand.typed_c3_expand_v5(*args)
-    first = typed_expand.w3z_scratch(1, cuda)
-    typed_expand.typed_c3_expand_v5(*args)
-    assert typed_expand.w3z_scratch(1, cuda).data_ptr() == first.data_ptr()
-    assert first.numel() >= 8 * 168 * 1024 * 2
+def test_typed_v5_equals_k5_bit_for_bit(cuda):
+    """v5 launches K5's kernel: at the published width (c2 128, c4 256, s3
+    32), more objects than SMs, the same bits as `typed_c3_expand`."""
+    args = _typed_case_at(cuda, "bf16", 300, 128, 256, 32, seed=12)
+    before = typed_expand.typed_c3_expand_v5.launches
+    got = typed_expand.typed_c3_expand_v5(*args)
+    assert typed_expand.typed_c3_expand_v5.launches == before + 1
+    assert torch.equal(got, typed_c3_expand(*args))
+
+
+# the shapes the kernels K5's replaced took and K5 did not: c2 192 and 256
+# (conv_dim 96 and 128), s3 24 and 56, c4 % 32 == 16, and 32-channel row-type
+# groups with 8 KB staging buffers (c2 272 and 256 at s3 16)
+@pytest.mark.parametrize("variant", ["v4", "v5", "v6"])
+@pytest.mark.parametrize("n,c2,c4,s3", [(133, 192, 384, 32), (133, 256, 512, 32), (40, 128, 256, 24),
+                                        (40, 128, 256, 56), (17, 48, 80, 24), (40, 272, 544, 16),
+                                        (40, 256, 1024, 16)])
+def test_typed_kernels_at_the_widened_shapes(cuda, variant, n, c2, c4, s3):
+    args = _typed_case_at(cuda, "bf16", n, c2, c4, s3, seed=c2 + s3)
+    kernel = typed_expand.VARIANTS[variant]
+    before = kernel.launches
+    got = kernel(*args)
+    assert kernel.launches == before + 1 and got.shape == (n, c4, s3, s3)
+    assert _rel(got, typed_c3_expand_plain(*args)) < TOL["bf16"]
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
@@ -460,10 +487,10 @@ def test_variant_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     launches = [k.launches for k in (v3, v5, v6, spade_few_out_conv)]
     with pytest.raises(ValueError, match="z2 shape"):
         v3(z2, idxR, lsel, selR, selC, ab, weight)  # the raw grid where the padded one is due
-    with pytest.raises(ValueError, match="z2 shape"):  # c2 = 16: v5's K steps are 32 wide
-        v5(z2[..., :16].contiguous(), idxR, lsel, selR, selC, ab, weight[:, :16].contiguous())
-    with pytest.raises(ValueError, match="weight shape"):  # c4 = 32: v5's stage 2 takes 64
-        v5(z2, idxR, lsel, selR, selC, ab[..., :32].contiguous(), weight[:32].contiguous())
+    with pytest.raises(ValueError, match="z2 shape"):  # c2 % 16, which K5's kernel needs
+        v5(z2[..., :24].contiguous(), idxR, lsel, selR, selC, ab, weight[:, :24].contiguous())
+    with pytest.raises(ValueError, match="weight shape"):  # c4 % 16
+        v5(z2, idxR, lsel, selR, selC, ab[..., :40].contiguous(), weight[:40].contiguous())
     with pytest.raises(ValueError, match="int32"):
         v6(z2, idxR.long(), lsel, selR, selC, ab, weight)
     with pytest.raises(ValueError, match="dtype"):
@@ -606,10 +633,10 @@ def test_redesigned_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     x, a_tab, b_tab, w = head(1, 32, 24, 8, dt=torch.float32)
     with pytest.raises(ValueError, match="dividing 1024"):
         spade_few_out_conv8(x, a_tab, b_tab, w, None, 8)
-    z2, idxR, lsel, selR, selC, ab, weight = _typed_case_at(cuda, "bf16", 2, 32, 64, 24, seed=26)
-    with pytest.raises(ValueError, match="s3 in \\(8, 16, 32, 64\\)"):
+    z2, idxR, lsel, selR, selC, ab, weight = _typed_case_at(cuda, "bf16", 2, 32, 64, 20, seed=26)
+    with pytest.raises(ValueError, match="selector shapes"):  # s3 % 8
         typed_c3_expand(z2, idxR, lsel, selR, selC, ab, weight)
-    args = _typed_case_at(cuda, "bf16", 2, 256, 64, 32, seed=27)
+    args = _typed_case_at(cuda, "bf16", 2, 320, 640, 32, seed=27)
     with pytest.raises(ValueError, match="bytes of shared memory"):
         typed_c3_expand(*args)
     assert launches == (spade_few_out_conv8.launches, typed_c3_expand.launches)

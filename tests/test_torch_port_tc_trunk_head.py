@@ -312,11 +312,12 @@ def test_head_kernel_route_by_alignment_and_mode():
     (128, 256, 32, torch.bfloat16, {"v4", "v5", "v6"}),  # the published width
     (24, 48, 32, torch.bfloat16, set()),  # conv_dim = 12: c2 % 16
     (32, 64, 32, torch.bfloat16, {"v4", "v5", "v6"}),
-    (16, 64, 32, torch.bfloat16, {"v4", "v6"}),  # v5 takes c2 % 32
-    (128, 256, 24, torch.bfloat16, {"v5"}),  # v4's and v6's bf16 epilogue: s3 in (8, 16, 32, 64)
-    (256, 64, 32, torch.bfloat16, {"v5"}),  # v4 and v6 (one kernel): shared memory
+    (16, 64, 32, torch.bfloat16, {"v4", "v5", "v6"}),  # v5 runs K5's kernel: c2 % 16
+    (128, 256, 24, torch.bfloat16, {"v4", "v5", "v6"}),  # the epilogue takes any s3 % 8
+    (256, 64, 32, torch.bfloat16, {"v4", "v5", "v6"}),  # row types and staging sized to fit
+    (320, 640, 32, torch.bfloat16, set()),  # past a block's shared memory in any layout
     (24, 48, 32, torch.float32, set()),
-    (16, 8, 32, torch.float32, {"v4", "v6"}),  # f32 chunks of 8 channels
+    (16, 8, 32, torch.float32, {"v4", "v5", "v6"}),  # f32 chunks of 8 channels
 ])
 def test_typed_kernel_predicates(c2, c4, s3, dtype, want):
     z2 = _aligned(3 * 12 * 12 * c2, dtype).view(3, 12, 12, c2)
