@@ -140,6 +140,25 @@ __device__ __forceinline__ void bulk_copy_g2s(uint32_t dst, const void* src, uin
           "r"(dst), "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
+// The box at coordinates (c0, c1, c2, c3) (innermost first) of the 4-D tensor
+// that `map` (a CUtensorMap: a __grid_constant__ kernel parameter or in
+// global memory) describes, from global to shared memory by the copy engine
+// (a TMA tensor copy), laid out and swizzled as the map says; elements
+// outside the tensor land as zeros, and the box's whole size counts towards
+// the current phase of `bar`. dst: aligned as the map's swizzle wants (1024
+// bytes serves every swizzle). One thread asks for it.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const void* map, int c0, int c1, int c2,
+                                            int c3, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+// Fetches a tensor map into the copy engine's cache ahead of its first use.
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
 // `bytes` (a multiple of 16, both addresses 16-byte aligned) from shared to
 // global memory by the copy engine; the thread goes on at once. The copies a
 // thread asks for before bulk_commit form a group; bulk_wait_read waits until

@@ -14,20 +14,21 @@
 //
 // Two kernels, which the wrapper (ops/spade_conv.py) picks between from the
 // shapes, the dtype and the alignment alone:
-//   - bf16, FLAT or COMPACT, where it takes the shapes (C % 16 == 0, W in
-//     {64, 128}, H % 8 == 0, the tables' rows within shared memory): K3's
+//   - bf16, in any mode, where it takes the shapes (C % 16 == 0, W in {64,
+//     128}, H % 8 == 0, the tables' rows within shared memory): K3's
 //     implicit GEMM on the tensor cores, spade_head_tc.cuh, with the table
-//     layout as a template parameter. What bounds K2 on the H100 was FMA
+//     layout and x's as template parameters (TRANSPOSED: x comes by a TMA
+//     tensor copy and is applied in place). What bounds K2 on the H100 was FMA
 //     throughput, not bytes: at the 64^2 c4 head (B=128, C=64, K=7, bf16) it
 //     reads x (67 MB) and two flat tables (84 MB together), 46 us at 3.35
 //     TB/s, and does 6.6 G multiply-adds with O padded to 4 (4.9 G at O=3),
 //     which the CUDA cores took 0.7 ms over; the tensor cores take them in
 //     a fraction of the apply pass's time. COMPACT runs the very kernel K3
 //     runs, so the two give the same bits;
-//   - f32 (the reference path: TF32 would not hold 1e-4), TRANSPOSED, and
-//     the shapes the tensor-core kernel does not take: FMAs on the CUDA
-//     cores, below. The design keeps the bytes near the floor and tiles the
-//     channels, so that any C fits:
+//   - f32 (the reference path: TF32 would not hold 1e-4) and the shapes
+//     the tensor-core kernel does not take: FMAs on the CUDA cores, below.
+//     The design keeps the bytes near the floor and tiles the channels, so
+//     that any C fits:
 //       * one CTA of 256 threads per (image, tile of `rows` output rows,
 //         rows * W <= 512); a thread owns PX=2 adjacent output pixels x 4
 //         (padded) channels, whose f32 sums stay in registers across the
@@ -225,19 +226,30 @@ extern "C" int spade_few_out_conv(const void* x, const void* at, const void* bt,
   return (int)dispatch_k<float>(mode, x, at, bt, w, bias, out, B, C, H, W, K, O, f, rows, cc, s);
 }
 
-// The tensor-core kernel on flat (compact = 0) or compact tables, bf16: wp is
-// the packed (C / 16, K, NP, 16) operand (ops/spade_conv.pack_head8_weights),
-// bias (4,) f32; the limits stand at tc::dispatch. Returns the launch's
-// cudaError_t.
+// The tensor-core kernel, bf16, in mode 0 (flat tables), 1 (compact tables)
+// or 2 (transposed: x (H, W, B, C), flat tables, read by one TMA tensor copy a
+// chunk): wp is the packed (C / 16, K, NP, 16) operand
+// (ops/spade_conv.pack_head8_weights), bias (4,) f32; the limits stand at
+// tc::dispatch (mode 2: also B C 2 % 16 == 0, the tensor map's strides).
+// Returns the launch's cudaError_t.
 extern "C" int spade_few_out_conv_tc(const void* x, const void* at, const void* bt,
                                      const void* wp, const void* bias, void* out, int B, int C,
-                                     int H, int W, int K, int O, int f, int compact, void* stream) {
+                                     int H, int W, int K, int O, int f, int mode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (compact) return (int)tc::dispatch<true>(x, at, bt, wp, bias, out, B, C, H, W, K, O, f, s);
-  return (int)tc::dispatch<false>(x, at, bt, wp, bias, out, B, C, H, W, K, O, f, s);
+  switch (mode) {
+    case FLAT:
+      return (int)tc::dispatch<false, false>(x, at, bt, wp, bias, out, B, C, H, W, K, O, f, s);
+    case COMPACT:
+      return (int)tc::dispatch<true, false>(x, at, bt, wp, bias, out, B, C, H, W, K, O, f, s);
+    case TRANSPOSED:
+      return (int)tc::dispatch<false, true>(x, at, bt, wp, bias, out, B, C, H, W, K, O, f, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-// Bytes of dynamic shared memory a block of the tensor-core kernel takes.
-extern "C" int spade_few_out_conv_tc_smem(int H, int W, int K, int O, int f, int compact) {
-  return tc::layout(H, W, K, O, f, compact != 0).total;
+// Bytes of dynamic shared memory a block of the tensor-core kernel takes in
+// `mode`.
+extern "C" int spade_few_out_conv_tc_smem(int H, int W, int K, int O, int f, int mode) {
+  return tc::layout(H, W, K, O, f, mode == COMPACT, mode == TRANSPOSED).total;
 }

@@ -155,11 +155,12 @@ extern "C" int spade_few_out_conv8(const void* x, const void* at, const void* bt
                                    const void* bias, void* out, int B, int C, int H, int W, int K,
                                    int O, int f, int cc, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return (int)tc::dispatch<true>(x, at, bt, w, bias, out, B, C, H, W, K, O, f, s);
+  if (is_bf16)
+    return (int)tc::dispatch<true, false>(x, at, bt, w, bias, out, B, C, H, W, K, O, f, s);
   return (int)dispatch_k<float>(x, at, bt, w, bias, out, B, C, H, W, K, O, f, cc, s);
 }
 
 // Bytes of dynamic shared memory a block of the bf16 kernel takes.
 extern "C" int spade_few_out_conv8_smem(int H, int W, int K, int O, int f) {
-  return tc::layout(H, W, K, O, f, true).total;
+  return tc::layout(H, W, K, O, f, true, false).total;
 }

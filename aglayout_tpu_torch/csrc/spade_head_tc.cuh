@@ -1,9 +1,10 @@
 // The RGB heads' bf16 kernel on the tensor cores: SPADE apply + relu + a KxK
 // conv to O <= 4 channels, from compact class tables (K3, the 128^2 c7 head,
 // spade_few_out_conv8.cu) or from flat ones (K2, the c4 head and the c7 head
-// with K3 switched off, spade_few_out_conv.cu). Each of the two sources
-// instantiates it for the table modes it takes, with a launch count of its
-// own.
+// with K3 switched off, spade_few_out_conv.cu), on x laid out (B, C, H, W)
+// or, with flat tables, (H, W, B, C) (K2's transposed mode, K2t). Each of
+// the two sources instantiates it for the modes it takes, with a launch
+// count of its own.
 //
 // out = conv(relu(x * A + B)) + bias. The affine of pixel (g, j), channel c
 // is tab[b, g / f, class(g % f), c, col(j)] with col(j) = (j / f) * 5 +
@@ -47,9 +48,26 @@
 //     every earlier store to shared memory, so the loads of the next row are
 //     written ahead of this row's stores, and the A fragments of the product
 //     two tiles ahead of the mma that reads them.
+// x laid out (H, W, B, C) (XT, K2t): a chunk's x rows are W runs of 32 bytes
+// a row at a stride of B C 2 bytes, 1,792 pieces for a c7 tile, too many and
+// too small for bulk copies. One TMA tensor copy takes them instead: a
+// tensor map (encoded on the host, `encode_x_map`) describes x as the 4-D
+// tensor (C, B, W, H), and a box of (16, 1, W, th) lands pixel-major with
+// 16 channels innermost, the 32-byte swizzle of the copy engine swapping the
+// 16-byte halves of pixels 4..7 of every 8: the y tile's own layout. So the
+// y tile is the staging buffer: the apply pass reads each pixel's 8
+// channels as one 16-byte word and writes y back in place (a warp's lanes
+// walk 32 pixels, so a table's channel row is read 64 contiguous bytes a
+// warp: no bank conflict and no transpose), and without the separate tile
+// two x buffers fit beside 128-wide flat tables. Rows outside the image come
+// from the copy as zeros, which is y's zero padding: they are not applied.
+// The product and everything after are the other modes', so K2t gives the
+// bits of K2 on flat tables run on x permuted to (B, C, H, W).
 // Numerics as the FMA kernels: y in f32, rounded to bf16; zero padding on y;
 // weights rounded to bf16; f32 accumulation; output rounded once.
 #pragma once
+
+#include <cuda.h>
 
 #include "common.cuh"
 
@@ -86,7 +104,11 @@ struct Layout {
   int xbuf, tbuf;   // bytes of one staging buffer of x, and of one table
   int slot, first, bar, ws, xs, tabs, ys, total;
 };
-inline Layout layout(int H, int W, int K, int O, int f, bool compact) {
+// xt: x laid out (H, W, B, C), its staging buffers the y tile's layout
+// ([th][W][CC], 1024-byte aligned for the copy engine's swizzle) and no y
+// tile beside them; always two (one would hold the next chunk's copy behind
+// this chunk's product): where they do not fit, the total is over the limit.
+inline Layout layout(int H, int W, int K, int O, int f, bool compact, bool xt) {
   Layout l;
   l.th = R + K - 1;
   l.w5 = compact ? W / f * 5 : W;
@@ -100,7 +122,7 @@ inline Layout layout(int H, int W, int K, int O, int f, bool compact) {
       const int s = table_slot(r0, ty, K / 2, H, f) + 1;
       l.slots = s > l.slots ? s : l.slots;
     }
-  l.xbuf = CC * l.xcs * 2;
+  l.xbuf = xt ? l.th * W * CC * 2 : CC * l.xcs * 2;
   l.tbuf = l.slots * CC * l.w5 * 2;
   l.slot = 0;                                // [th] int: table slot of a tile row
   l.first = 64;                              // [th] int: first tile row of a slot; [15]: slots
@@ -108,6 +130,14 @@ inline Layout layout(int H, int W, int K, int O, int f, bool compact) {
   l.ws = 144;                                // [2][K][np][CC] bf16, k in fragment order
   l.xs = l.ws + 2 * K * l.np * CC * 2;       // [xb][CC][xcs] bf16, rows [th][W]
   const int sums = R * W * (l.np + 1) * 4;   // [R * W][np + 1] f32 (odd: no conflicts), overlays from xs on
+  if (xt) {
+    l.xs = (l.xs + 1023) / 1024 * 1024;      // [2][th][W][CC] bf16, the y tiles
+    l.xb = 2;
+    l.tabs = l.xs + 2 * l.xbuf;
+    l.ys = l.tabs + 4 * l.tbuf;              // no y tile of its own
+    l.total = l.xs + (l.ys - l.xs > sums ? l.ys - l.xs : sums);
+    return l;
+  }
   for (l.xb = 2;; --l.xb) {
     l.tabs = l.xs + l.xb * l.xbuf;           // [2][A, B][slots][CC][w5] bf16
     l.ys = l.tabs + 4 * l.tbuf;              // [th][W][CC] bf16, the 16-byte halves swizzled
@@ -118,21 +148,58 @@ inline Layout layout(int H, int W, int K, int O, int f, bool compact) {
   return l;
 }
 
-// x: (B, C, H, W) bf16; at, bt: (B, H/f, 5, C, W5) bf16, W5 = 5 W/f with
-// COMPACT, else W; wp: (C / 16, K, NP, 16) bf16, the packed weights
-// [chunk][dy][(dx, o)][c], zero rows past K * O, the 16 channels of a chunk
-// in the order 0 1 8 9 2 3 10 11 4 5 12 13 6 7 14 15 (a lane's mma B fragment
-// is then 8 contiguous bytes); bias: (4,) f32; out: (B, O, H, W) bf16. W == 16
-// MT, NP == 8 NT, XB == L.xb. Grid (H / R, B).
-template <int NT, int MT, bool COMPACT, int XB>
+// The tensor map of x (H, W, B, C) bf16 for XT: the 4-D tensor (C, B, W, H),
+// a box of (CC, 1, W, th), the 32-byte swizzle, zeros outside. Encoded by
+// cuTensorMapEncodeTiled (libcuda's), whose address the CUDA runtime hands
+// out, so that the library links against the runtime alone.
+inline cudaError_t encode_x_map(CUtensorMap* map, const void* x, int B, int C, int H, int W,
+                                int th) {
+  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+  static Encode encode = nullptr;
+  if (!encode) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || !fn) return cudaErrorNotSupported;
+    encode = reinterpret_cast<Encode>(fn);
+  }
+  const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)B, (cuuint64_t)W, (cuuint64_t)H};
+  const cuuint64_t strides[3] = {(cuuint64_t)C * 2, (cuuint64_t)B * C * 2,
+                                 (cuuint64_t)W * B * C * 2};  // bytes, of dims 1..3
+  const cuuint32_t box[4] = {CC, 1, (cuuint32_t)W, (cuuint32_t)th}, ones[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
+                              strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_32B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// x: (B, C, H, W) bf16, or (H, W, B, C) with XT (read through xmap); at, bt:
+// (B, H/f, 5, C, W5) bf16, W5 = 5 W/f with COMPACT, else W; wp: (C / 16, K,
+// NP, 16) bf16, the packed weights [chunk][dy][(dx, o)][c], zero rows past K *
+// O, the 16 channels of a chunk in the order 0 1 8 9 2 3 10 11 4 5 12 13 6 7
+// 14 15 (a lane's mma B fragment is then 8 contiguous bytes); bias: (4,) f32;
+// out: (B, O, H, W) bf16. W == 16 MT, NP == 8 NT, XB == L.xb. Grid (H / R, B).
+template <int NT, int MT, bool COMPACT, bool XT, int XB>
 __global__ void __launch_bounds__(THREADS, 1)
 head8_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ at,
                  const __nv_bfloat16* __restrict__ bt, const __nv_bfloat16* __restrict__ wp,
                  const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int C, int H,
-                 int K, int O, int f, const Layout L) {
+                 int K, int O, int f, const Layout L, const __grid_constant__ CUtensorMap xmap) {
+  static_assert(!(XT && (COMPACT || XB != 2)), "XT: flat tables, two staging buffers");
   constexpr int W = 16 * MT, NP = 8 * NT, SS = NP + 1;  // SS: floats a pixel of the sums
   constexpr int PGS = W / 8 / R;  // 8-pixel groups a warp applies: 2 at W = 128, 1 at 64
-  extern __shared__ __align__(16) unsigned char smem[];
+  extern __shared__ __align__(1024) unsigned char smem[];  // XT: the swizzled copies want it
   int* slot = reinterpret_cast<int*>(smem + L.slot);
   int* first = reinterpret_cast<int*>(smem + L.first);
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem + L.ws);
@@ -155,6 +222,7 @@ head8_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
     agl::mbar_init(bar(0), 1);
     agl::mbar_init(bar(1), 1);
     agl::mbar_fence_init();
+    if constexpr (XT) agl::prefetch_tensormap(&xmap);
   }
   if (tid < TH) slot[tid] = table_slot(r0, tid, r, H, f);
   __syncthreads();
@@ -165,31 +233,37 @@ head8_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
   __syncthreads();
 
   // The producer warp asks the copy engine for a chunk's x rows (one run of
-  // rows a channel; with x_now false they follow from stage_x), table rows
-  // (one run of CC rows a slot and table) and weight slice (one run), into
-  // the staging buffers of the chunk's parity; the bytes land on that
-  // buffer's mbarrier.
+  // rows a channel, or with XT one tensor copy of the whole tile; with x_now
+  // false they follow from stage_x), table rows (one run of CC rows a slot
+  // and table) and weight slice (one run), into the staging buffers of the
+  // chunk's parity; the bytes land on that buffer's mbarrier.
+  constexpr int NX = XT ? 1 : CC;  // x copies a chunk
   const uint32_t xbytes = (tyhi - tylo) * W * 2;
+  const uint32_t xtx = XT ? TH * W * CC * 2 : CC * xbytes;  // a tensor copy counts its zeros too
   auto copy_x = [&](int ci, int j) {
-    agl::bulk_copy_g2s(agl::smem_u32(xbuf(ci) + j * L.xcs + tylo * W),
-                       x + (((size_t)b * C + ci * CC + j) * H + r0 + tylo - r) * W, xbytes, bar(ci));
+    if constexpr (XT)
+      agl::tma_load_4d(agl::smem_u32(xbuf(ci)), &xmap, ci * CC, b, 0, r0 - r, bar(ci));
+    else
+      agl::bulk_copy_g2s(agl::smem_u32(xbuf(ci) + j * L.xcs + tylo * W),
+                         x + (((size_t)b * C + ci * CC + j) * H + r0 + tylo - r) * W, xbytes,
+                         bar(ci));
   };
   auto stage = [&](int ci, bool x_now) {
     const int c0 = ci * CC, nslots = first[15];
     const uint32_t tbytes = CC * W5 * 2, wbytes = K * NP * CC * 2;
     if (lane == 0) {
-      agl::fence_proxy_async();  // the buffers were read by ordinary loads two chunks ago
-      agl::mbar_arrive_expect_tx(bar(ci), CC * xbytes + 2 * nslots * tbytes + wbytes);
+      agl::fence_proxy_async();  // the buffers were read (XT: and written) two chunks ago
+      agl::mbar_arrive_expect_tx(bar(ci), xtx + 2 * nslots * tbytes + wbytes);
     }
     __syncwarp();
-    for (int j = (x_now ? 0 : CC) + lane; j < CC + 1 + 2 * nslots; j += 32) {
-      if (j < CC) {
+    for (int j = (x_now ? 0 : NX) + lane; j < NX + 1 + 2 * nslots; j += 32) {
+      if (j < NX) {
         copy_x(ci, j);
-      } else if (j == CC) {
+      } else if (j == NX) {
         agl::bulk_copy_g2s(agl::smem_u32(ws + (ci & 1) * K * NP * CC),
                            wp + (size_t)ci * K * NP * CC, wbytes, bar(ci));
       } else {
-        const int s = (j - CC - 1) >> 1, which = (j - CC - 1) & 1, g = r0 + first[s] - r;
+        const int s = (j - NX - 1) >> 1, which = (j - NX - 1) & 1, g = r0 + first[s] - r;
         const size_t src = ((((size_t)b * HB + g / f) * 5 + agl::row_class(g % f, f)) * C + c0) * W5;
         agl::bulk_copy_g2s(agl::smem_u32(tbuf(ci, which) + s * CC * W5), (which ? bt : at) + src,
                            tbytes, bar(ci));
@@ -212,7 +286,7 @@ head8_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
   // that neither these stores nor the product's ldmatrix meet a bank conflict.
   // The PGS * 2 steps of a tile row are independent chains, and the table
   // values stay in registers while the rows share a slot.
-  auto apply = [&](int ci) {
+  auto apply_nchw = [&](int ci) {
     const __nv_bfloat16 *xs = xbuf(ci), *ta = tbuf(ci, 0), *tb = tbuf(ci, 1);
     int col[PGS][2];
 #pragma unroll
@@ -300,6 +374,59 @@ head8_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
                                        ((cg ^ (g8 >> 2)) * 8) + 2 * t4) = packed[p][cg];
     }
   };
+  // XT: y = relu(x * A + B) in place in the staged chunk, which the tensor
+  // copy laid out as the y tile. Warp w takes pixels 32 (w % PG) + lane,
+  // channels 8 h .. 8 h + 7 with h = (w / PG) % 2, of every RS-th row inside
+  // the image from the (w / 2 PG)-th on: one 16-byte word a row, the next
+  // row's loaded ahead of this row's store (the compiler keeps a load behind
+  // every earlier store). A lane's 16 table values stay in registers while
+  // the rows share a slot; the rows outside the image are the copy's zeros.
+  auto apply_hwbc = [&](int ci) {
+    constexpr int PG = W / 32, RS = R / (2 * PG);
+    char* xs = reinterpret_cast<char*>(xbuf(ci));
+    const __nv_bfloat16 *ta = tbuf(ci, 0), *tb = tbuf(ci, 1);
+    const int px = (warp % PG) * 32 + lane, h = (warp / PG) & 1;
+    const int off = px * 32 + ((h ^ ((px >> 2) & 1)) << 4);  // the lane's word in a tile row
+    unsigned long long slots = 0;  // 4 bits a row, as apply_nchw keeps them
+    for (int ty = 0; ty < TH; ++ty) slots |= (unsigned long long)(slot[ty] & 15) << (4 * ty);
+    float av[8], bv[8];
+    int cur = -1;
+    const int t0 = tylo + warp / (2 * PG);
+    uint4 next = make_uint4(0, 0, 0, 0);
+    if (t0 < tyhi) next = *reinterpret_cast<const uint4*>(xs + t0 * W * 32 + off);
+    for (int ty = t0; ty < tyhi; ty += RS) {
+      const uint4 v = next;
+      if (ty + RS < tyhi) next = *reinterpret_cast<const uint4*>(xs + (ty + RS) * W * 32 + off);
+      const int s = (int)(slots >> (4 * ty)) & 15;
+      if (s != cur) {
+        cur = s;
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const int i = (s * CC + h * 8 + e) * W + px;  // flat tables: W5 == W
+          av[e] = __bfloat162float(ta[i]);
+          bv[e] = __bfloat162float(tb[i]);
+        }
+      }
+      uint32_t y[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint32_t word = reinterpret_cast<const uint32_t*>(&v)[q];
+        const float2 x2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&word));
+        const __nv_bfloat162 y2 =
+            __floats2bfloat162_rn(fmaxf(fmaf(x2.x, av[2 * q], bv[2 * q]), 0.f),
+                                  fmaxf(fmaf(x2.y, av[2 * q + 1], bv[2 * q + 1]), 0.f));
+        y[q] = *reinterpret_cast<const uint32_t*>(&y2);
+      }
+      *reinterpret_cast<uint4*>(xs + ty * W * 32 + off) = make_uint4(y[0], y[1], y[2], y[3]);
+    }
+    agl::fence_proxy_async();  // these stores come before the copy engine refills the buffer
+  };
+  auto apply = [&](int ci) {
+    if constexpr (XT)
+      apply_hwbc(ci);
+    else
+      apply_nchw(ci);
+  };
 
   float acc[MT][NT][4];
 #pragma unroll
@@ -312,10 +439,11 @@ head8_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
   // The chunk's share of the GEMM: output row `warp`, every row tap a k-step.
   auto product = [&](int ci) {
     const __nv_bfloat16* wsl = ws + (ci & 1) * K * NP * CC + g8 * CC + 4 * t4;
+    const __nv_bfloat16* yt = XT ? xbuf(ci) : ys;  // XT: the y tile is the staging buffer
     // ldmatrix x4: lane supplies pixel lane % 16 of the 16-pixel tile, channels
     // 8 (lane / 16) on, which lie in the swizzled half
     const uint32_t abase = agl::smem_u32(
-        ys + (warp * W + (lane & 15)) * CC + (((lane >> 4) ^ ((lane >> 2) & 1)) * 8));
+        yt + (warp * W + (lane & 15)) * CC + (((lane >> 4) ^ ((lane >> 2) & 1)) * 8));
     // The asm statements keep their order, so the A fragments are asked for
     // two tiles ahead of the product that uses them, and a row tap's B
     // fragments (x: k = 2t, 2t + 1; y: k = 2t + 8, 2t + 9 of column g) one tap ahead.
@@ -383,58 +511,67 @@ head8_mma_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __res
   }
 }
 
-template <int NT, int MT, bool COMPACT, int XB>
+template <int NT, int MT, bool COMPACT, bool XT, int XB>
 cudaError_t launch(const void* x, const void* at, const void* bt, const void* wp,
                    const void* bias, void* out, int B, int C, int H, int K, int O, int f,
-                   const Layout& L, cudaStream_t stream) {
+                   const Layout& L, const CUtensorMap& xmap, cudaStream_t stream) {
   using T = __nv_bfloat16;
-  cudaError_t err = cudaFuncSetAttribute(head8_mma_kernel<NT, MT, COMPACT, XB>,
+  cudaError_t err = cudaFuncSetAttribute(head8_mma_kernel<NT, MT, COMPACT, XT, XB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
   if (err != cudaSuccess) return err;
-  head8_mma_kernel<NT, MT, COMPACT, XB><<<dim3(H / R, B), THREADS, L.total, stream>>>(
+  head8_mma_kernel<NT, MT, COMPACT, XT, XB><<<dim3(H / R, B), THREADS, L.total, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(at), static_cast<const T*>(bt),
       static_cast<const T*>(wp), static_cast<const float*>(bias), static_cast<T*>(out), C, H, K,
-      O, f, L);
+      O, f, L, xmap);
   return cudaGetLastError();
 }
 
-// One x buffer is instantiated only where it can be needed: flat tables at W = 128.
-template <int NT, int MT, bool COMPACT>
+// One x buffer is instantiated only where it can be needed: flat tables and
+// x (B, C, H, W) at W = 128.
+template <int NT, int MT, bool COMPACT, bool XT>
 cudaError_t launch_xb(const void* x, const void* at, const void* bt, const void* wp,
                       const void* bias, void* out, int B, int C, int H, int K, int O, int f,
-                      cudaStream_t s) {
-  const Layout L = layout(H, 16 * MT, K, O, f, COMPACT);
+                      const CUtensorMap& xmap, cudaStream_t s) {
+  const Layout L = layout(H, 16 * MT, K, O, f, COMPACT, XT);
   if (L.total > agl::SMEM_LIMIT) return cudaErrorInvalidValue;
-  if (L.xb == 2) return launch<NT, MT, COMPACT, 2>(x, at, bt, wp, bias, out, B, C, H, K, O, f, L, s);
-  if constexpr (!COMPACT && MT == 8)
-    return launch<NT, MT, COMPACT, 1>(x, at, bt, wp, bias, out, B, C, H, K, O, f, L, s);
+  if (L.xb == 2)
+    return launch<NT, MT, COMPACT, XT, 2>(x, at, bt, wp, bias, out, B, C, H, K, O, f, L, xmap, s);
+  if constexpr (!COMPACT && !XT && MT == 8)
+    return launch<NT, MT, COMPACT, XT, 1>(x, at, bt, wp, bias, out, B, C, H, K, O, f, L, xmap, s);
   return cudaErrorInvalidValue;
 }
 
-template <int MT, bool COMPACT>
+template <int MT, bool COMPACT, bool XT>
 cudaError_t dispatch_nt(const void* x, const void* at, const void* bt, const void* wp,
                         const void* bias, void* out, int B, int C, int H, int K, int O, int f,
-                        cudaStream_t s) {
+                        const CUtensorMap& m, cudaStream_t s) {
   switch ((K * O + 7) / 8) {
-    case 1: return launch_xb<1, MT, COMPACT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, s);
-    case 2: return launch_xb<2, MT, COMPACT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, s);
-    case 3: return launch_xb<3, MT, COMPACT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, s);
-    case 4: return launch_xb<4, MT, COMPACT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, s);
+    case 1: return launch_xb<1, MT, COMPACT, XT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, m, s);
+    case 2: return launch_xb<2, MT, COMPACT, XT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, m, s);
+    case 3: return launch_xb<3, MT, COMPACT, XT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, m, s);
+    case 4: return launch_xb<4, MT, COMPACT, XT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, m, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // W in {64, 128}, H % 8 == 0, C % 16 == 0, H % f == 0, W % f == 0 with
 // COMPACT, K odd <= 7, O <= 4; x and the tables 16-byte aligned; the block's
-// shared memory (layout) within the card's.
-template <bool COMPACT>
+// shared memory (layout) within the card's. XT (x laid out (H, W, B, C),
+// flat tables): the tensor map of x is encoded here, for this call.
+template <bool COMPACT, bool XT>
 cudaError_t dispatch(const void* x, const void* at, const void* bt, const void* wp,
                      const void* bias, void* out, int B, int C, int H, int W, int K, int O, int f,
                      cudaStream_t s) {
+  static_assert(!(COMPACT && XT), "a transposed x takes flat tables");
   if (H % R || C % CC || H % f || (COMPACT && W % f)) return cudaErrorInvalidValue;
+  CUtensorMap m{};
+  if constexpr (XT) {
+    const cudaError_t err = encode_x_map(&m, x, B, C, H, W, R + K - 1);
+    if (err != cudaSuccess) return err;
+  }
   switch (W) {
-    case 64: return dispatch_nt<4, COMPACT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, s);
-    case 128: return dispatch_nt<8, COMPACT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, s);
+    case 64: return dispatch_nt<4, COMPACT, XT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, m, s);
+    case 128: return dispatch_nt<8, COMPACT, XT>(x, at, bt, wp, bias, out, B, C, H, K, O, f, m, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1,8 +1,7 @@
-// Device helpers shared by the typed-c3 kernels of this directory
-// (typed_c3_expand.cu, whose kernels also run v5 and v6, and _v3): the
-// geometry of the type grids, the one-object chunk product on the tensor
-// cores, the column-window sum with the bn3 affine, and the expansion's
-// store loop. Each source keeps its own __global__ kernels and schedules.
+// Device helpers of the typed-c3 kernels (typed_c3_expand.cu, whose kernels
+// run v4, v3, v5 and v6): the geometry of the type grids and, for the f32
+// reference kernel, the one-object chunk product on FMAs, the column-window
+// sum with the bn3 affine, and the expansion's store loop.
 //
 // Per object, with z2 its grid of c2 values by (row type, col type) and w3
 // the (c4, c2, 4, 4) c3 weight:
@@ -28,25 +27,19 @@ constexpr int THREADS = 256;
 template <typename T>
 struct Cfg;
 template <>
-struct Cfg<__nv_bfloat16> {
-  static constexpr int CC = 32;
-};
-template <>
 struct Cfg<float> {
   static constexpr int CC = 8;
 };
 
 // Row stride of a grid tile in shared memory: 16 bytes of padding against
-// bank conflicts of ldmatrix.
+// bank conflicts of ldmatrix (the bf16 kernel's).
 __host__ __device__ constexpr int zstride(int c2) { return c2 + 8; }
 __host__ __device__ inline size_t align16(size_t v) { return (v + 15) / 16 * 16; }
 
 // Bytes of the w3 slice of a chunk of CC channels in shared memory (load_w3).
 template <typename T, int CC = Cfg<T>::CC>
 __host__ __device__ inline size_t btile_bytes(int c2) {
-  constexpr int N = CC * KW;
-  return sizeof(T) == 2 ? (size_t)N * (KW * c2 + 8) * sizeof(T)   // [n][k], k contiguous
-                        : (size_t)KW * c2 * (N + 1) * sizeof(T);  // [k][n]
+  return (size_t)KW * c2 * (CC * KW + 1) * sizeof(T);  // [k][n]
 }
 
 // Grid-tile row of W3z row m = (a, l), l < LS, at kernel row h: zrow0[a, h]
@@ -59,69 +52,9 @@ __device__ __forceinline__ int zrow(const int* zrow0, int m, int h, int zero) {
   return r0 < 0 ? zero : r0 + m % LS;
 }
 
-// W3z of one chunk of one object into ws ([NA * LS][N], rounded to T), bf16
-// on the tensor cores (mma.sync m16n8k16, f32 sums): ldmatrix takes the A
-// rows straight from the gathered grid rows, so the gather is an address;
-// each warp owns 16 columns x all row tiles. zs: the grid tile, rows of
-// zstride(c2); bs: [N][KW * c2 + 8], n = ci * KW + w. Ends with ws written
-// but not yet synchronised; ws may overlay bs or zs.
-template <int LS>
-__device__ void chunk_product(const __nv_bfloat16* zs, const __nv_bfloat16* bs, __nv_bfloat16* ws,
-                              const int* zrow0, int c2, int zero) {
-  constexpr int N = Cfg<__nv_bfloat16>::CC * KW;  // 128: 8 warps x 16 columns
-  constexpr int M = NA * LS, MT = (M + 15) / 16;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3, n0 = warp * 16;
-  const int K = KW * c2, bstride = K + 8, zs_ = zstride(c2);
-  float acc[MT][2][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
-
-  for (int h = 0; h < KW; ++h) {
-    // ldmatrix x4: lane supplies row (lane % 16) of the tile, k offset 8 * (lane / 16)
-    uint32_t rowaddr[MT];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-      rowaddr[mt] = agl::smem_u32(zs + zrow<LS>(zrow0, mt * 16 + (lane & 15), h, zero) * zs_ +
-                                  (lane >> 4) * 8);
-    for (int c0 = 0; c0 < c2; c0 += 16) {
-      const int k0 = h * c2 + c0;
-      uint32_t b[2][2];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const __nv_bfloat16* bp = bs + (size_t)(n0 + j * 8 + g) * bstride + k0 + 2 * t;
-        b[j][0] = *reinterpret_cast<const uint32_t*>(bp);
-        b[j][1] = *reinterpret_cast<const uint32_t*>(bp + 8);
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a[4];
-        agl::ldmatrix_x4(rowaddr[mt] + c0 * 2, a);
-        agl::mma_bf16(acc[mt][0], a, b[0][0], b[0][1]);
-        agl::mma_bf16(acc[mt][1], a, b[1][0], b[1][1]);
-      }
-    }
-  }
-  __syncthreads();  // every warp is done with bs and zs, either of which ws may overlay
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int m = mt * 16 + g + 8 * half, n = n0 + j * 8 + 2 * t;
-        if (m < M) {
-          ws[m * N + n] = __float2bfloat16_rn(acc[mt][j][2 * half]);
-          ws[m * N + n + 1] = __float2bfloat16_rn(acc[mt][j][2 * half + 1]);
-        }
-      }
-}
-
-// The same in f32 on the FMAs. bs: [KW * c2][N + 1].
+// W3z of one chunk of one object into ws ([NA * LS][N]), f32 on the FMAs:
+// zs is the grid tile, rows of zstride(c2); bs: [KW * c2][N + 1]. Ends with
+// ws written but not yet synchronised; ws may overlay bs or zs.
 template <int LS>
 __device__ void chunk_product(const float* zs, const float* bs, float* ws, const int* zrow0,
                               int c2, int zero) {
@@ -159,18 +92,7 @@ __device__ void chunk_product(const float* zs, const float* bs, float* ws, const
 }
 
 // A chunk's w3 slice: channels [c0, c0 + CC) of wk ((c4, KW, KW * c2), rows
-// (C, w), columns (h, c)), into shared memory: bf16 [N][KW * c2 + 8], k
-// contiguous, n = ci * KW + w; f32 [KW * c2][N + 1].
-template <int CC>
-__device__ inline void load_w3(const __nv_bfloat16* wk, __nv_bfloat16* bs, int c0, int c2) {
-  constexpr int N = CC * KW;
-  const int K = KW * c2, kv = K / 8;
-  const uint4* src = reinterpret_cast<const uint4*>(wk + (size_t)c0 * KW * K);
-  for (int i = threadIdx.x; i < N * kv; i += THREADS) {
-    const int n = i / kv, k8 = i % kv;
-    *reinterpret_cast<uint4*>(bs + (size_t)n * (K + 8) + k8 * 8) = src[i];
-  }
-}
+// (C, w), columns (h, c)), into shared memory as [KW * c2][N + 1].
 template <int CC>
 __device__ inline void load_w3(const float* wk, float* bs, int c0, int c2) {
   constexpr int N = CC * KW;
@@ -182,15 +104,20 @@ __device__ inline void load_w3(const float* wk, float* bs, int c0, int c2) {
   }
 }
 
-// One object's grid tile: `rows` rows of c2 values from z (contiguous) into
-// zs, rows of zstride(c2), 16 bytes a copy.
+// One object's 12 x 12 grid tile from its (side, side, c2) grid z, side 12
+// or 13 (zero-padded: its row and column 12 are not read), into zs, rows of
+// zstride(c2), 16 bytes a copy, by `nthreads` threads from `first` on.
 template <typename T>
-__device__ __forceinline__ void load_grid(const T* z, T* zs, int rows, int c2) {
+__device__ __forceinline__ void load_grid(const T* z, T* zs, int c2, int side, int first,
+                                          int nthreads) {
   using V = agl::Vec16<T>;
   const int cv = c2 / V::N;
   const uint4* src = reinterpret_cast<const uint4*>(z);
-  for (int i = threadIdx.x; i < rows * cv; i += THREADS)
-    *reinterpret_cast<uint4*>(zs + (i / cv) * zstride(c2) + (i % cv) * V::N) = src[i];
+  for (int i = first; i < NZ * NZ * cv; i += nthreads) {
+    const int m = i / cv;  // (row type, col type) = (m / 12, m % 12)
+    *reinterpret_cast<uint4*>(zs + m * zstride(c2) + (i % cv) * V::N) =
+        src[(m + m / NZ * (side - NZ)) * cv + i % cv];
+  }
 }
 
 // V3 of a chunk of cc channels from its W3z in shared memory, ws

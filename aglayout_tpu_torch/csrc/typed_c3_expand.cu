@@ -65,6 +65,14 @@
 // The same kernel replaces pallas_typed_expand.py::typed_c3_expand_v5, whose
 // one product over all row types of an object is what its three warpgroups
 // already do: typed_c3_expand_v5 launches it as it is, bit for bit K5.
+// It replaces pallas_typed_expand.py::typed_c3_expand (v3) too, which takes
+// the grid zero-padded to 13 x 13: the kernel reads the 12 x 12 grid in
+// place from each 13-wide row (the `side` argument), and its taps of row
+// and column 12 are the zeros it gives idxR == 12 and lsel >= 12 (as JAX's
+// v4 reads a padded grid, pallas_typed_expand.py:349-357); v3's group of
+// objects a program is the TPU's way to fill the MXU and has no counterpart
+// in the persistent schedule. typed_c3_expand_v3 launches it as it is, bit
+// for bit K5 on the grid's inner 12 x 12.
 // It also replaces pallas_typed_expand.py::typed_c3_expand_v6, whose
 // idea is to skip a row type that no output row has (typed_c3_expand_v6, the
 // V6 instantiation): the present types' rows are compacted, so a warpgroup
@@ -100,15 +108,17 @@ __host__ __device__ inline size_t smem_bytes(int c2, int s3) {
          (size_t)(2 * NA * KW + 2 * s3) * sizeof(int);
 }
 
-// z2: (n, 12, 12, c2) T; idxR, lsel: (n, 14, 4) i32; selR, selC: (n, s3)
-// i32; ab: (n, 2, c4) f32; wk: (c4, KW, KW * c2) T, rows (C, w), columns
-// (h, c); out: (n, c4, s3, s3) T. Grid (n).
+// z2: (n, side, side, c2) T, side 12 or 13 (of which the 12 x 12 are read);
+// idxR, lsel: (n, 14, 4) i32; selR, selC: (n, s3) i32; ab: (n, 2, c4) f32;
+// wk: (c4, KW, KW * c2) T, rows (C, w), columns (h, c); out: (n, c4, s3, s3)
+// T. Grid (n).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 typed_c3_expand_kernel(const T* __restrict__ z2, const int* __restrict__ idxR,
                        const int* __restrict__ lsel, const int* __restrict__ selR,
                        const int* __restrict__ selC, const float* __restrict__ ab,
-                       const T* __restrict__ wk, T* __restrict__ out, int c2, int c4, int s3) {
+                       const T* __restrict__ wk, T* __restrict__ out, int c2, int c4, int s3,
+                       int side) {
   constexpr int CC = Cfg<T>::CC, N = CC * KW;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* zs = reinterpret_cast<T*>(smem_raw);
@@ -131,7 +141,7 @@ typed_c3_expand_kernel(const T* __restrict__ z2, const int* __restrict__ idxR,
     sr[i] = selR[obj * s3 + i];
     sc[i] = selC[obj * s3 + i];
   }
-  load_grid(z2 + (size_t)obj * ZROW * c2, zs, ZROW, c2);
+  load_grid(z2 + (size_t)obj * side * side * c2, zs, c2, side, tid, THREADS);
   for (int i = tid; i < c2; i += THREADS) zs[ZROW * zstride(c2) + i] = agl::from_f<T>(0.f);
 
   const float* a3 = ab + (size_t)obj * 2 * c4;
@@ -151,7 +161,7 @@ typed_c3_expand_kernel(const T* __restrict__ z2, const int* __restrict__ idxR,
 template <typename T>
 cudaError_t launch(const void* z2, const void* idxR, const void* lsel, const void* selR,
                    const void* selC, const void* ab, const void* wk, void* out, int n, int c2,
-                   int c4, int s3, cudaStream_t stream) {
+                   int c4, int s3, int side, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(c2, s3);
   cudaError_t err = cudaFuncSetAttribute(typed_c3_expand_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -159,7 +169,7 @@ cudaError_t launch(const void* z2, const void* idxR, const void* lsel, const voi
   typed_c3_expand_kernel<T><<<n, THREADS, smem, stream>>>(
       static_cast<const T*>(z2), static_cast<const int*>(idxR), static_cast<const int*>(lsel),
       static_cast<const int*>(selR), static_cast<const int*>(selC), static_cast<const float*>(ab),
-      static_cast<const T*>(wk), static_cast<T*>(out), c2, c4, s3);
+      static_cast<const T*>(wk), static_cast<T*>(out), c2, c4, s3, side);
   return cudaGetLastError();
 }
 
@@ -281,7 +291,8 @@ __device__ __forceinline__ uint64_t present_types(const int* sel, int s3, int& c
 }
 __device__ __forceinline__ int type_at(uint64_t slots, int j) { return (int)(slots >> (4 * j)) & 15; }
 
-// z2: (n, 12, 12, c2); idxR, lsel: (n, 14, 4) i32; selR, selC: (n, s3) i32;
+// z2: (n, side, side, c2), side 12 or 13 (v3's zero-padded grid, whose 12 x
+// 12 are read in place); idxR, lsel: (n, 14, 4) i32; selR, selC: (n, s3) i32;
 // ab: (n, 2, c4) f32; wp: (c4 / 32, 4 c2 / 64, 128, 64) bf16, the packed
 // weights [chunk][k slice][(w, ci)][k], k = h * c2 + c, the 16-byte pieces of
 // a row swizzled as in the ring; out: (n, c4, s3, s3). Grid: one block an SM,
@@ -302,7 +313,7 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
                           const int* __restrict__ lsel, const int* __restrict__ selR,
                           const int* __restrict__ selC, const float* __restrict__ ab,
                           const __nv_bfloat16* __restrict__ wp, __nv_bfloat16* __restrict__ out,
-                          int n, int c2, int c4, int s3) {
+                          int n, int c2, int c4, int s3, int side) {
   using T = __nv_bfloat16;
   extern __shared__ __align__(1024) unsigned char smem[];
   // K5's shapes: K5's layout in closed form (a choice made in a loop would
@@ -379,13 +390,8 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
           zrow0[i] = (idx >= 0 && idx < NZ) ? idx * NZ : -1;
         }
       }
-      {
-        const int cv = c2 / 8;
-        const uint4* src = reinterpret_cast<const uint4*>(z2 + (size_t)obj * ZROW * c2);
-        for (int i = tid; i < ZROW * cv; i += CT)
-          *reinterpret_cast<uint4*>(zs + (i / cv) * zs_ + (i % cv) * 8) = src[i];
-        for (int i = tid; i < c2; i += CT) zs[ZROW * zs_ + i] = __float2bfloat16_rn(0.f);
-      }
+      load_grid(z2 + (size_t)obj * side * side * c2, zs, c2, side, tid, CT);
+      for (int i = tid; i < c2; i += CT) zs[ZROW * zs_ + i] = __float2bfloat16_rn(0.f);
       agl::named_barrier(1, CT);
 
       for (int ch = 0; ch < nchunks; ++ch, ++q) {
@@ -632,7 +638,7 @@ typed_c3_expand_tc_kernel(const __nv_bfloat16* __restrict__ z2, const int* __res
 template <bool V6>
 cudaError_t launch(const void* z2, const void* idxR, const void* lsel, const void* selR,
                    const void* selC, const void* ab, const void* wp, void* out, int n, int c2,
-                   int c4, int s3, cudaStream_t stream) {
+                   int c4, int s3, int side, cudaStream_t stream) {
   using T = __nv_bfloat16;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -649,7 +655,7 @@ cudaError_t launch(const void* z2, const void* idxR, const void* lsel, const voi
   kernel<<<n < sms ? n : sms, THREADS, l.total, stream>>>(
       static_cast<const T*>(z2), static_cast<const int*>(idxR), static_cast<const int*>(lsel),
       static_cast<const int*>(selR), static_cast<const int*>(selC), static_cast<const float*>(ab),
-      static_cast<const T*>(wp), static_cast<T*>(out), n, c2, c4, s3);
+      static_cast<const T*>(wp), static_cast<T*>(out), n, c2, c4, s3, side);
   return cudaGetLastError();
 }
 
@@ -668,8 +674,24 @@ extern "C" int typed_c3_expand(const void* z2, const void* idxR, const void* lse
                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)tc::launch<false>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, s);
-  return (int)launch<float>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, s);
+    return (int)tc::launch<false>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3,
+                                  typed::NZ, s);
+  return (int)launch<float>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, typed::NZ,
+                           s);
+}
+
+// typed_c3_expand_v3: the same arguments and limits, z2 the zero-padded (n,
+// 13, 13, c2) grid; the kernels above read its 12 x 12 in place.
+extern "C" int typed_c3_expand_v3(const void* z2p, const void* idxR, const void* lsel,
+                                  const void* selR, const void* selC, const void* ab,
+                                  const void* wk, void* out, int n, int c2, int c4, int s3,
+                                  int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return (int)tc::launch<false>(z2p, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3,
+                                  typed::NL, s);
+  return (int)launch<float>(z2p, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, typed::NL,
+                           s);
 }
 
 // typed_c3_expand_v6: the same function and arguments; in bf16 the kernel
@@ -681,8 +703,10 @@ extern "C" int typed_c3_expand_v6(const void* z2, const void* idxR, const void* 
                                   int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return (int)tc::launch<true>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, s);
-  return (int)launch<float>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, s);
+    return (int)tc::launch<true>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3,
+                                 typed::NZ, s);
+  return (int)launch<float>(z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, typed::NZ,
+                           s);
 }
 
 // Bytes of dynamic shared memory a block of the bf16 kernel takes.

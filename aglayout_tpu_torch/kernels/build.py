@@ -41,9 +41,9 @@ SIGNATURES = {
     "residual_trunk_tc_smem": [_I],
     # x, a_tab, b_tab, w, bias, out, B, C, H, W, K, O, f, rows, cc, mode, is_bf16, stream
     "spade_few_out_conv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # x, a_tab, b_tab, wp, bias, out, B, C, H, W, K, O, f, compact, stream
+    # x, a_tab, b_tab, wp, bias, out, B, C, H, W, K, O, f, mode, stream
     "spade_few_out_conv_tc": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
-    # H, W, K, O, f, compact -> bytes of shared memory (no cudaError_t)
+    # H, W, K, O, f, mode -> bytes of shared memory (no cudaError_t)
     "spade_few_out_conv_tc_smem": [_I, _I, _I, _I, _I, _I],
     # x, a_tab, b_tab, w, bias, out, B, C, H, W, K, O, f, cc, is_bf16, stream
     "spade_few_out_conv8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -57,8 +57,8 @@ SIGNATURES = {
     # c2, c4, s3 -> bytes of shared memory a block of the bf16 kernel takes (no cudaError_t)
     "typed_c3_expand_smem": [_I, _I, _I],
     "typed_c3_expand_v6": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # z2p, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, group, is_bf16, stream
-    "typed_c3_expand_v3": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # z2p (the zero-padded grid) and the rest as typed_c3_expand's
+    "typed_c3_expand_v3": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x, wp, sw, amax, q, out, B, Cin, Cout, k, gb, is_bf16, stream
     "conv_small_int8": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, a_tab, b_tab, wp, sw, ymax, q, out, B, C, H, W, f, is_bf16, stream

@@ -19,9 +19,10 @@ Kernels, each beside its plain PyTorch version:
     `transposed=True` an x laid out (H, W, B, C), an op no model path
     calls, as in JAX): `csrc/spade_few_out_conv.cu`, two kernels that the
     wrapper picks between from the shapes, the dtype and the alignment
-    (`spade_few_out_conv_route`): in bf16, flat or compact, K3's implicit
-    GEMM on the tensor cores (`csrc/spade_head_tc.cuh`) wherever it takes
-    the shapes, else FMAs on the CUDA cores;
+    (`spade_few_out_conv_route`): in bf16, in each mode, K3's implicit
+    GEMM on the tensor cores (`csrc/spade_head_tc.cuh`; a transposed x
+    comes by a TMA tensor copy) wherever it takes the shapes, else FMAs on
+    the CUDA cores;
   * `spade_few_out_conv8` (K3, the 128^2 c7 head; compact tables):
     `csrc/spade_few_out_conv8.cu`, in bf16 that implicit GEMM over weights
     packed by `pack_head8_weights`, whose arithmetic
@@ -174,17 +175,24 @@ def _table_slots(h: int, k: int, f: int) -> int:
     return most
 
 
-def head_tc_layout(h: int, w: int, k: int, o: int, f: int, compact: bool):
+def head_tc_layout(h: int, w: int, k: int, o: int, f: int, compact: bool,
+                   transposed: bool = False):
     """(x staging buffers, bytes of shared memory) of a block of the
     tensor-core kernel, as `tc::layout` in `csrc/spade_head_tc.cuh` computes
     them: two staging buffers for x where they fit, else one (the flat
-    tables of a 128-wide map take the room of the second)."""
+    tables of a 128-wide map take the room of the second). A transposed x
+    is staged as the y tile itself ((8 + K - 1) rows x W pixels x 16
+    channels a buffer, 1024-byte aligned), always in two buffers; where
+    they do not fit the size is over the limit."""
     th, w5, cols = _TC_R + k - 1, (w // f * 5 if compact else w), -(-k * o // 8) * 8
     words = th * w // 2
     xcs = 2 * (words + (36 - words % 32) % 32)
     xbuf, tbuf = _TC_CC * xcs * 2, _table_slots(h, k, f) * _TC_CC * w5 * 2
     xs = 144 + 2 * k * cols * _TC_CC * 2
     sums = _TC_R * w * (cols + 1) * 4
+    if transposed:
+        xs = -(-xs // 1024) * 1024
+        return 2, xs + max(2 * th * w * _TC_CC * 2 + 4 * tbuf, sums)
     for xb in (2, 1):
         operands = xb * xbuf + 4 * tbuf + th * w * _TC_CC * 2
         total = xs + max(operands, sums)
@@ -198,21 +206,25 @@ def _head_weight_ok(x, weight, c: int) -> bool:
     return tuple(weight.shape) == (o, c, k, k) and k in (3, 5, 7) and 1 <= o <= 4
 
 
-def spade_head_tc_supports(x, weight, f: int, compact: bool, tables=()) -> bool:
-    """Whether the tensor-core kernel takes x (B, C, H, W) and the weight on
-    tables of that mode: bf16, C % 16 == 0 (the mma k-step), W in (64, 128)
-    and H % 8 == 0 (8-row tiles of 16-pixel mma tiles), W % f == 0 with
-    compact tables, x and the tables 16-byte aligned (the bulk copies), and
-    the block's shared memory. A pure function of shapes, dtype and
-    alignment: no CUDA call."""
-    if x.dtype != torch.bfloat16 or x.dim() != 4:
+def spade_head_tc_supports(x, weight, f: int, compact: bool, tables=(),
+                           transposed: bool = False) -> bool:
+    """Whether the tensor-core kernel takes x (B, C, H, W), or (H, W, B, C)
+    with `transposed` (flat tables only), and the weight on tables of that
+    mode: bf16, C % 16 == 0 (the mma k-step), W in (64, 128) and H % 8 == 0
+    (8-row tiles of 16-pixel mma tiles), W % f == 0 with compact tables, x
+    and the tables 16-byte aligned (the bulk and tensor copies), with
+    `transposed` B C 2 % 16 == 0 (the tensor map's strides), and the block's
+    shared memory. A pure function of shapes, dtype and alignment: no CUDA
+    call."""
+    if x.dtype != torch.bfloat16 or x.dim() != 4 or (compact and transposed):
         return False
-    _, c, h, w = x.shape
+    h, w, b, c = x.shape if transposed else (*x.shape[2:], *x.shape[:2])
     o, _, k, _ = weight.shape
     return (_head_weight_ok(x, weight, c) and c % _TC_CC == 0 and w in (64, 128)
             and h % _TC_R == 0 and f >= 5 and h % f == 0 and (not compact or w % f == 0)
+            and (not transposed or b * c * 2 % 16 == 0)
             and all(t.data_ptr() % 16 == 0 for t in (x, *tables))
-            and head_tc_layout(h, w, k, o, f, compact)[1] <= build.SMEM_LIMIT)
+            and head_tc_layout(h, w, k, o, f, compact, transposed)[1] <= build.SMEM_LIMIT)
 
 
 _MODES = {"flat": 0, "compact": 1, "transposed": 2}  # the kernel's mode argument
@@ -221,15 +233,15 @@ _MODES = {"flat": 0, "compact": 1, "transposed": 2}  # the kernel's mode argumen
 def spade_few_out_conv_route(x, weight, f: int, compact: bool = False, transposed: bool = False,
                              tables=()) -> str | None:
     """The kernel `spade_few_out_conv` launches for these inputs: "tc" (bf16,
-    flat or compact tables, where `spade_head_tc_supports`), "fma", or None
-    where neither takes them. A pure function of shapes, dtype and
-    alignment: no CUDA call."""
+    in any mode, where `spade_head_tc_supports`), "fma", or None where
+    neither takes them. A pure function of shapes, dtype and alignment: no
+    CUDA call."""
     if x.dtype not in _DTYPES or x.dim() != 4 or (compact and transposed) or f < 5:
         return None
     h, w, _, c = x.shape if transposed else (*x.shape[2:], *x.shape[:2])
     if not _head_weight_ok(x, weight, c) or h % f or w % 2 or (compact and w % f):
         return None
-    if not transposed and spade_head_tc_supports(x, weight, f, compact, tables):
+    if spade_head_tc_supports(x, weight, f, compact, tables, transposed):
         return "tc"
     vec = 16 // x.element_size() if transposed else 1
     if transposed and (c % vec or x.data_ptr() % 16):
@@ -284,7 +296,7 @@ def spade_few_out_conv(x, a_tab, b_tab, weight, bias, f: int, compact: bool = Fa
         wk, bk = pack_head8_weights(weight, x.dtype), _padded_bias(bias, o, x.device)
         err = build.library().spade_few_out_conv_tc(
             x.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(), wk.data_ptr(), bk.data_ptr(),
-            out.data_ptr(), b, c, h, w, k, o, f, int(compact), stream,
+            out.data_ptr(), b, c, h, w, k, o, f, _MODES[mode], stream,
         )
     else:
         rows, cc = _pick_tile(c, h, w, k, x.element_size(), vec)

@@ -19,9 +19,12 @@ V3 to device memory.
 
 The JAX module's other three kernels are three more schedules of the same
 function:
-  * `typed_c3_expand_v3` (`csrc/typed_c3_expand_v3.cu`): the zero-padded
-    (n, 13, 13, c2) grid, a group of objects per block sharing one chunk of
-    the c3 weights; an op no model path calls, as in JAX;
+  * `typed_c3_expand_v3` (`csrc/typed_c3_expand.cu`): the function on the
+    zero-padded (n, 13, 13, c2) grid, whose 12 x 12 K5's kernel reads in
+    place, so it equals `typed_c3_expand` on the inner grid bit for bit;
+    JAX's group of objects a program fills the TPU's MXU and has no
+    counterpart in the persistent schedule; an op no model path calls, as
+    in JAX;
   * `typed_c3_expand_v5` (`csrc/typed_c3_expand.cu`): one product over all
     row types of an object, which is what K5's kernel does: it launches that
     kernel as it is, and equals `typed_c3_expand` bit for bit;
@@ -49,9 +52,8 @@ NZ = 12  # c2 types per axis
 NL = 13  # c2 types per axis of the zero-padded grid `typed_c3_expand_v3` takes
 _DTYPES = {torch.bfloat16: 1, torch.float32: 0}
 # the output channels the kernels' chunks divide: K5 in bf16 multiplies
-# chunks of 32 and takes a last one of 16, in f32 chunks of 8; v3's of 32
+# chunks of 32 and takes a last one of 16, in f32 chunks of 8
 _CHUNK = {torch.bfloat16: 16, torch.float32: 8}
-_CHUNK_V3 = {torch.bfloat16: 32, torch.float32: 8}
 
 
 def typed_c3_inputs_from_windows(idxR, winKC, sel3R, sel3C):
@@ -115,10 +117,9 @@ typed_c3_expand_v5_plain = typed_c3_expand_plain
 typed_c3_expand_v6_plain = typed_c3_expand_plain
 
 
-def _check(name, z2, idxR, lsel, selR, selC, ab, weight, nl=NZ, chunk=_CHUNK):
+def _check(name, z2, idxR, lsel, selR, selC, ab, weight, nl=NZ):
     """Device, dtype, shape, contiguity and alignment checks shared by the
-    four wrappers; returns (n, c2, c4, s3). nl: the grid's side; chunk: the
-    kernel's output channels per chunk, by dtype."""
+    four wrappers; returns (n, c2, c4, s3). nl: the grid's side."""
     if z2.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {z2.device}")
     if z2.dtype not in _DTYPES:
@@ -127,7 +128,7 @@ def _check(name, z2, idxR, lsel, selR, selC, ab, weight, nl=NZ, chunk=_CHUNK):
     c4, s3 = weight.shape[0], selR.shape[-1]
     if z2.shape != (n, nl, nl, c2) or c2 % 16 or n < 1:
         raise ValueError(f"{name}: z2 shape {tuple(z2.shape)} not supported")
-    if weight.shape != (c4, c2, 4, 4) or c4 % chunk[z2.dtype]:
+    if weight.shape != (c4, c2, 4, 4) or c4 % _CHUNK[z2.dtype]:
         raise ValueError(f"{name}: weight shape {tuple(weight.shape)} not supported")
     if idxR.shape != (n, NA, 4) or lsel.shape != (n, NA, 4):
         raise ValueError(f"{name}: window shapes {tuple(idxR.shape)}, {tuple(lsel.shape)}")
@@ -176,14 +177,16 @@ def typed_tc_smem(c2: int, c4: int, s3: int) -> int:
     return typed_tc_layout(c2, c4, s3)[2]
 
 
-def _shapes_ok(z2, weight, s3: int, nl: int, chunk) -> bool:
-    """The shape, dtype and alignment limits of `_check`, as a predicate."""
+def _supports(z2, weight, s3: int, nl: int) -> bool:
+    """The limits of `_check` and, in bf16, the block's shared memory, as a
+    predicate; nl: the grid's side."""
     if z2.dtype not in _DTYPES or z2.dim() != 4:
         return False
     n, c2, c4 = z2.shape[0], z2.shape[-1], weight.shape[0]
     return (tuple(z2.shape) == (n, nl, nl, c2) and n >= 1 and c2 % 16 == 0
-            and tuple(weight.shape) == (c4, c2, 4, 4) and c4 % chunk[z2.dtype] == 0
-            and s3 % 8 == 0 and z2.data_ptr() % 16 == 0)
+            and tuple(weight.shape) == (c4, c2, 4, 4) and c4 % _CHUNK[z2.dtype] == 0
+            and s3 % 8 == 0 and z2.data_ptr() % 16 == 0
+            and (z2.dtype != torch.bfloat16 or typed_tc_smem(c2, c4, s3) <= build.SMEM_LIMIT))
 
 
 def typed_c3_expand_supports(z2, weight, s3: int) -> bool:
@@ -192,15 +195,13 @@ def typed_c3_expand_supports(z2, weight, s3: int) -> bool:
     % 16 == 0 in bf16 and % 8 in f32, s3 % 8 == 0, z2 16-byte aligned; in
     bf16 also the block's shared memory (`typed_tc_smem`: at s3 = 32 and c4
     = 2 c2, c2 up to 304). A pure function of shapes, dtype and alignment."""
-    if not _shapes_ok(z2, weight, s3, NZ, _CHUNK):
-        return False
-    return z2.dtype != torch.bfloat16 or (
-        typed_tc_smem(z2.shape[-1], weight.shape[0], s3) <= build.SMEM_LIMIT)
+    return _supports(z2, weight, s3, NZ)
 
 
 def typed_c3_expand_v3_supports(z2p, weight, s3: int) -> bool:
-    """The same for `typed_c3_expand_v3` on the padded (n, 13, 13, c2) grid."""
-    return _shapes_ok(z2p, weight, s3, NL, _CHUNK_V3)
+    """The same for `typed_c3_expand_v3` on the padded (n, 13, 13, c2) grid:
+    K5's kernel, which reads the 12 x 12 in place, so K5's limits."""
+    return _supports(z2p, weight, s3, NL)
 
 
 # v5 and v6 run `typed_c3_expand`'s kernel: its limits
@@ -279,11 +280,11 @@ def unpack_typed_c3_weights(packed):
     return wk.permute(0, 2, 4, 3, 1).reshape(nch * 32, c2, 4, 4)
 
 
-def _typed_tc(name, z2, idxR, lsel, selR, selC, ab, weight, fn=None):
-    """The launch shared by `typed_c3_expand`, `typed_c3_expand_v5` and
-    `typed_c3_expand_v6`, the schedules of the kernel of
-    `csrc/typed_c3_expand.cu`; fn: the library function, if not `name`."""
-    n, c2, c4, s3 = _check(name, z2, idxR, lsel, selR, selC, ab, weight)
+def _typed_tc(name, z2, idxR, lsel, selR, selC, ab, weight, fn=None, nl=NZ):
+    """The launch shared by the four wrappers, the schedules of the kernel
+    of `csrc/typed_c3_expand.cu`; fn: the library function, if not `name`;
+    nl: the grid's side."""
+    n, c2, c4, s3 = _check(name, z2, idxR, lsel, selR, selC, ab, weight, nl)
     if z2.dtype == torch.bfloat16:
         smem = typed_tc_smem(c2, c4, s3)
         if smem > build.SMEM_LIMIT:
@@ -321,23 +322,21 @@ typed_c3_expand.launches = 0
 
 
 def typed_c3_expand_v3(z2p, idxR, lsel, selR, selC, ab, weight, group: int = 8):
-    """The typed c3 on the zero-padded (n, 13, 13, c2) grid, `group` objects
-    a block; see `typed_c3_expand_v3_plain` for the contract. Like the JAX
-    op, no model path calls it.
+    """The typed c3 on the zero-padded (n, 13, 13, c2) grid; see
+    `typed_c3_expand_v3_plain` for the contract. Like the JAX op, no model
+    path calls it. `group` (JAX's objects a program, >= 1) is checked and
+    has no effect: the kernel is `typed_c3_expand`'s, one persistent block
+    an SM walking over the objects, which reads the grid's 12 x 12 in place
+    and gives the bits of `typed_c3_expand` on `z2p[:, :12, :12]`.
 
-    A CPU tensor takes the plain version. A CUDA tensor launches
-    `csrc/typed_c3_expand_v3.cu` or raises.
+    A CPU tensor takes the plain version. A CUDA tensor launches the kernel
+    of `csrc/typed_c3_expand.cu` or raises.
     """
-    if z2p.device.type == "cpu":
-        return typed_c3_expand_v3_plain(z2p, idxR, lsel, selR, selC, ab, weight)
-    n, c2, c4, s3 = _check("typed_c3_expand_v3", z2p, idxR, lsel, selR, selC, ab, weight, nl=NL,
-                           chunk=_CHUNK_V3)
     if group < 1:
         raise ValueError(f"typed_c3_expand_v3: group {group} not supported")
-    wk = weight.to(z2p.dtype).permute(0, 3, 2, 1).contiguous()  # (C, w, h, c)
-    out = torch.empty((n, c4, s3, s3), dtype=z2p.dtype, device=z2p.device)
-    _launch("typed_c3_expand_v3", z2p, idxR, lsel, selR, selC, ab, wk, (out.data_ptr(),),
-            n, c2, c4, s3, group)
+    if z2p.device.type == "cpu":
+        return typed_c3_expand_v3_plain(z2p, idxR, lsel, selR, selC, ab, weight)
+    out = _typed_tc("typed_c3_expand_v3", z2p, idxR, lsel, selR, selC, ab, weight, nl=NL)
     typed_c3_expand_v3.launches += 1
     return out
 

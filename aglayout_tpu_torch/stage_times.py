@@ -1,13 +1,15 @@
 """Where the time of the tensor-core kernels goes: the residual trunk (K1),
-the RGB heads (K2 at the c4 head, K3 at the c7 head), the typed c3
-expansion (K5) and the int8 convs (K6, K7), as one-off variants of a
-kernel with a stage cut out, timed on the card.
+the RGB heads (K2 at the c4 head, K3 at the c7 head, K2's transposed mode
+K2t at the c7 head's shape), the typed c3 expansion (K5 and its v3, v5, v6
+schedules) and the int8 convs (K6, K7), as one-off variants of a kernel
+with a stage cut out, timed on the card.
 
-    python3 -m aglayout_tpu_torch.stage_times k1 k2 k3 k5 k5v5 k5v6 k6 k7
-    python3 -m aglayout_tpu_torch.stage_times --csrc <an earlier csrc/> k1_fma k2_fma k3_fma k5_serial
+    python3 -m aglayout_tpu_torch.stage_times k1 k2 k2t k3 k5 k5v3 k5v5 k5v6 k6 k7
+    python3 -m aglayout_tpu_torch.stage_times --csrc <an earlier csrc/> k1_fma k2_fma k2t_fma k3_fma k5_serial
     python3 -m aglayout_tpu_torch.stage_times --csrc <a csrc/ before K6's wgmma kernel> k6_mma_sync
     python3 -m aglayout_tpu_torch.stage_times --csrc <a csrc/ before K7's wgmma kernel> k5v5_scratch k7_mma_sync
-    python3 -m aglayout_tpu_torch.stage_times --whole [--box] [--csrc <a csrc/>] k5 k5v5 k5v6 k6 k7
+    python3 -m aglayout_tpu_torch.stage_times --csrc <a csrc/ before v3 ran on K5's kernel> k5v3_group
+    python3 -m aglayout_tpu_torch.stage_times --whole [--box] [--csrc <a csrc/>] k2t k5 k5v3 k5v5 k5v6 k6 k7
 
 Needs one CUDA card and `nvcc`. Each variant is the shipped source with a
 few lines replaced (a call removed, a loop bound set to 0), copied with the
@@ -16,7 +18,9 @@ compiled on its own and called at the shape the 128^2 serving path gives
 the kernel (B = 128, O = 10, bf16). A variant computes a wrong result; only
 its time is read (CUDA events over 20 launches, twice); the whole kernel's
 also on the device (`chip_smoke.device_ms`, its hand-written launches
-checked in the trace). `--whole` builds and times the whole kernel alone
+checked in the trace), and the hash of its output, which two csrc/
+directories' kernels that give the same bits share. `--whole` builds and
+times the whole kernel alone
 (an earlier csrc/ may lack the lines the cuts replace); `--box` also times
 a typed kernel, whole, on the inputs the 128^2 path makes from the serving
 bench's layouts. The shipped kernels have no switch for any
@@ -27,26 +31,33 @@ edit that moves a line shows there and not on the card.
 `k1` cuts the tensor-core kernel of `csrc/residual_trunk.cu`; `k2` and `k3`
 the one of `csrc/spade_head_tc.cuh`, as `csrc/spade_few_out_conv.cu` builds
 it for the c4 head's flat tables and `csrc/spade_few_out_conv8.cu` for the
-c7 head's compact ones; `k5` the one of `csrc/typed_c3_expand.cu`, and
-`k5v6` the same lines in its v6 instantiation (`typed_c3_expand_v6`, on the
-same random inputs), and `k5v5` the same kernel as `typed_c3_expand_v5`
-launches it; `k6` the three launches of `csrc/conv_small_int8.cu` (the
-two quantise passes, the wgmma product and its copies) and `k7` those of
-`csrc/spade_c6_int8.cu` (the max pass, the apply and quantise pass, the
-wgmma product, its weight and map copies). `k1_fma`,
-`k2_fma`, `k3_fma` and `k5_serial` cut the bf16 kernels those replaced (FMAs
-on the CUDA cores; one block an object, its stages one after the other),
-read with `--csrc` from a checkout that has them; `k6_mma_sync` and
-`k7_mma_sync` the `mma.sync` kernels K6 and K7 replaced, `k5v6_serial` the
-one-block-an-object v6 kernel K5-v6 replaced and `k5v5_scratch` the
-two-stage v5 kernel whose W3z went through a device scratch, from a `csrc/`
-that still has them (`EARLIER`), whole.
+c7 head's compact ones, `k2t` its transposed instantiation (x (H, W, B, C),
+one TMA tensor copy a chunk) at the c7 head's shape; `k5` the one of
+`csrc/typed_c3_expand.cu`, and `k5v6` the same lines in its v6
+instantiation (`typed_c3_expand_v6`, on the same random inputs), and
+`k5v5` and `k5v3` the same kernel as `typed_c3_expand_v5` and
+`typed_c3_expand_v3` launch it (v3 on the zero-padded grid); `k6` the
+three launches of `csrc/conv_small_int8.cu` (the two quantise passes, the
+wgmma product and its copies) and `k7` those of `csrc/spade_c6_int8.cu`
+(the max pass, the apply and quantise pass, the wgmma product, its weight
+and map copies). `k1_fma`,
+`k2_fma`, `k2t_fma`, `k3_fma` and `k5_serial` cut the bf16 kernels those
+replaced (FMAs on the CUDA cores; one block an object, its stages one after
+the other), read with `--csrc` from a checkout that has them (K1's and
+K2's FMA kernels still ship, for f32 and the shapes the tensor cores do not
+take); `k6_mma_sync` and `k7_mma_sync` the `mma.sync` kernels K6 and K7
+replaced, `k5v6_serial` the one-block-an-object v6 kernel K5-v6 replaced,
+`k5v5_scratch` the two-stage v5 kernel whose W3z went through a device
+scratch and `k5v3_group` the v3 kernel whose blocks took a group of objects
+for one weight chunk, from a `csrc/` that still has them (`EARLIER`),
+whole.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import shutil
 import subprocess
 from pathlib import Path
@@ -81,6 +92,20 @@ HEAD_CUTS = [
     ("no shifted sum (one column tap)", [(K3_DX, K3_DX.replace("dx = 0; dx < K", "dx = r; dx <= r"))]),
     ("no transpose in the warp", [("packed[p][cg] = agl::movmatrix_trans(packed[p][cg]);", "")]),
     ("the sums' write-out only", [(K3_PRODUCT, ""), (K3_APPLY, "")] + K3_NO_LOADS),
+]
+# k2t: its x comes by one tensor copy a chunk, whose bytes the mbarrier
+# expects; both go for "no x copies" (the table and weight copies stay)
+K2T_NO_X = [("  constexpr int NX = XT ? 1 : CC;  // x copies a chunk\n",
+             "  constexpr int NX = XT ? 0 : CC;  // x copies a chunk\n"),
+            ("  const uint32_t xtx = XT ? TH * W * CC * 2 : CC * xbytes;",
+             "  const uint32_t xtx = XT ? 0 : CC * xbytes;")]
+K2T_CUTS = [
+    ("whole kernel", []),
+    ("no apply pass (copies + product)", [(K3_APPLY, "")]),
+    ("no x copies (table and weight copies, apply pass, product)", K2T_NO_X),
+    ("copies only", [(K3_PRODUCT, ""), (K3_APPLY, "")]),
+    ("apply pass only", [(K3_PRODUCT, "")] + K3_NO_LOADS),
+    ("product only", [(K3_APPLY, "")] + K3_NO_LOADS),
 ]
 # ---- of csrc/residual_trunk.cu (k1: the tensor-core kernel)
 K1_NO_COPIES = [
@@ -177,10 +202,13 @@ VARIANTS = {
         ("weight copies only (no product, no epilogues)", K1_NO_MMA + K1_NO_EPILOGUES),
     ]),
     "k2": ("spade_head_tc.cuh", "spade_few_out_conv.cu", "spade_few_out_conv_tc", HEAD_CUTS),
+    "k2t": ("spade_head_tc.cuh", "spade_few_out_conv.cu", "spade_few_out_conv_tc", K2T_CUTS),
     "k3": ("spade_head_tc.cuh", "spade_few_out_conv8.cu", "spade_few_out_conv8", HEAD_CUTS),
     "k5": ("typed_c3_expand.cu", "typed_c3_expand.cu", "typed_c3_expand", K5_CUTS),
     # the v6 schedule of the same kernel: the same lines, its own instantiation
     "k5v6": ("typed_c3_expand.cu", "typed_c3_expand.cu", "typed_c3_expand_v6", K5_CUTS),
+    # v3 on the zero-padded grid: K5's kernel, K5's lines
+    "k5v3": ("typed_c3_expand.cu", "typed_c3_expand.cu", "typed_c3_expand_v3", K5_CUTS),
     "k6": ("conv_small_int8.cu", "conv_small_int8.cu", "conv_small_int8", [
         ("whole call", []),
         ("the two quantise passes only", [(K6_CONV, "")]),
@@ -224,6 +252,14 @@ VARIANTS = {
             _zero("    for (int i = tid; i < cc * K * K; i += THREADS)"),
             _zero("      for (int cr = warp; cr < cc * TH; cr += nwarps) {")]),
     ]),
+    # K2t's FMA kernel (mode 2), which ran it in bf16 before the tensor cores did
+    "k2t_fma": ("spade_few_out_conv.cu", "spade_few_out_conv.cu", "spade_few_out_conv", [
+        ("whole kernel", []),
+        ("load + apply only (no FMAs)", [_zero("      for (int c = 0; c < cc; ++c) {")]),
+        ("FMAs only (no load, no apply)", [
+            _zero("    for (int i = tid; i < cc * K * K; i += THREADS)"),
+            _zero("      for (int i = tid; i < nv * TH * TW; i += THREADS) {")]),
+    ]),
     "k3_fma": ("spade_few_out_conv8.cu", "spade_few_out_conv8.cu", "spade_few_out_conv8", [
         ("whole kernel", []),
         ("load + apply only (no FMAs)", [_zero("    for (int c = 0; c < cc; ++c) {")]),
@@ -243,6 +279,10 @@ VARIANTS = {
     "k5v5_scratch": ("typed_c3_expand_v5.cu", "typed_c3_expand_v5.cu", "typed_c3_expand_v5",
                      [("whole kernel", [])]),
     "k7_mma_sync": ("spade_c6_int8.cu", "spade_c6_int8.cu", "spade_c6_int8", [("whole call", [])]),
+    # the v3 kernel (a group of objects a block, one weight chunk, mma.sync)
+    # that v3's move onto K5's kernel replaced: in an earlier csrc/ only (EARLIER)
+    "k5v3_group": ("typed_c3_expand_v3.cu", "typed_c3_expand_v3.cu", "typed_c3_expand_v3",
+                   [("whole kernel", [])]),
     # the v6 kernel K5-v6 replaced: its source is gone from this csrc/ (EARLIER)
     "k5v6_serial": ("typed_c3_expand_v6.cu", "typed_c3_expand_v6.cu", "typed_c3_expand_v6",
                     [("whole kernel", [])]),
@@ -262,7 +302,9 @@ VARIANTS = {
 EARLIER = {"k6_mma_sync": [build._P] * 6 + [build._I] * 7 + [build._P],
            "k5v6_serial": build.SIGNATURES["typed_c3_expand_v6"],
            "k5v5_scratch": [build._P] * 9 + [build._I] * 5 + [build._P],
-           "k7_mma_sync": [build._P] * 7 + [build._I] * 7 + [build._P]}
+           "k7_mma_sync": [build._P] * 7 + [build._I] * 7 + [build._P],
+           "k5v3_group": [build._P] * 8 + [build._I] * 6 + [build._P]}
+V3_GROUP = 8  # the objects a block of k5v3_group took (its wrapper's default)
 # hand-written launches a call of the whole kernel, where more than one
 LAUNCHES = {"k6": 3, "k6_mma_sync": 3, "k5v5_scratch": 2, "k7": 3, "k7_mma_sync": 2}
 
@@ -319,13 +361,15 @@ def _operands(kernel: str, box: bool = False):
                 keep = (h, resblocks.pack_trunk_weights(w1, w2, dt), ab1, ab2, out)
                 tail = (b, c, r, stream)
         elif kernel.startswith(("k2", "k3")):
-            f = 8 if kernel.startswith("k2") else 16
+            transposed = kernel.startswith("k2t")
+            f = 8 if kernel.startswith("k2") and not transposed else 16
             if f == 8:  # the c4 head, flat tables
                 x, a_tab, b_tab = cs.table_inputs(model.decoder.spade_3, 64, 64, False, dt, gen, dev)
                 weight, bias = model.decoder.c4.weight, model.decoder.c4.bias
-            else:
-                x, a_tab, b_tab, weight, bias = cs.head_inputs(model.decoder, "compact", dt, gen, dev)
-            b, c, h, w = x.shape
+            else:  # the c7 head's shape: compact tables, or flat under an (H, W, B, C) x
+                x, a_tab, b_tab, weight, bias = cs.head_inputs(
+                    model.decoder, "transposed" if transposed else "compact", dt, gen, dev)
+            h, w, b, c = x.shape if transposed else (*x.shape[2:], *x.shape[:2])
             o, _, k, _ = weight.shape
             out = torch.empty((b, o, h, w), dtype=dt, device=dev)
             if kernel.endswith("_fma"):
@@ -333,10 +377,11 @@ def _operands(kernel: str, box: bool = False):
             else:
                 wk, bk = spade_conv.pack_head8_weights(weight, dt), spade_conv._padded_bias(bias, o, dev)
             keep = (x, a_tab, b_tab, wk, bk, out)
-            if kernel == "k2_fma":
-                tail = (b, c, h, w, k, o, f, *spade_conv._pick_tile(c, h, w, k, 2), 0, 1, stream)
-            elif kernel == "k2":
-                tail = (b, c, h, w, k, o, f, 0, stream)
+            if kernel in ("k2_fma", "k2t_fma"):
+                tile = spade_conv._pick_tile(c, h, w, k, 2, 8 if transposed else 1)
+                tail = (b, c, h, w, k, o, f, *tile, 2 if transposed else 0, 1, stream)
+            elif kernel in ("k2", "k2t"):
+                tail = (b, c, h, w, k, o, f, 2 if transposed else 0, stream)
             else:
                 tail = (b, c, h, w, k, o, f, spade_conv._channel_chunk(c) if kernel == "k3_fma" else 0,
                         1, stream)
@@ -376,6 +421,8 @@ def _operands(kernel: str, box: bool = False):
             tail = (b, c, h, w, 16, *([16] if kernel == "k7_mma_sync" else []), 1, stream)
         else:
             inputs = cs.box_typed_inputs(model) if box else cs.typed_inputs(model, dt, gen, dev)
+            if kernel.startswith("k5v3"):  # the grid zero-padded to 13 x 13
+                inputs = (cs.padded_grid(inputs[0]), *inputs[1:])
             z2, idxR, lsel, selR, selC, ab, weight = inputs
             n, c2, c4, s3 = z2.shape[0], z2.shape[-1], weight.shape[0], selR.shape[-1]
             out = torch.empty((n, c4, s3, s3), dtype=dt, device=dev)
@@ -384,10 +431,11 @@ def _operands(kernel: str, box: bool = False):
                 w3z = torch.empty(n * 14 * 12 * 4 * c4, dtype=dt, device=dev)
                 keep = (z2, idxR, lsel, selR, selC, ab, wk, w3z, out)
             else:
-                wk = (weight.to(dt).permute(0, 3, 2, 1).contiguous() if kernel.endswith("_serial")
+                wk = (weight.to(dt).permute(0, 3, 2, 1).contiguous()
+                      if kernel.endswith(("_serial", "_group"))
                       else typed_expand.pack_typed_c3_weights(weight, dt))
                 keep = (z2, idxR, lsel, selR, selC, ab, wk, out)
-            tail = (n, c2, c4, s3, 1, stream)
+            tail = (n, c2, c4, s3, *([V3_GROUP] if kernel == "k5v3_group" else []), 1, stream)
     return keep, (*(t.data_ptr() for t in keep), *tail)
 
 
@@ -416,18 +464,20 @@ def run(kernel: str, csrc: Path, whole: bool = False, box: bool = False) -> dict
         sig = EARLIER[kernel] if kernel in EARLIER else build.SIGNATURES[fn_name]
         fn.argtypes, fn.restype = sig, ctypes.c_int
         for label in labels[:1 if i else None]:  # the cuts on the random inputs only
-            args = operands[label][1]
+            keep, args = operands[label]
 
             def call():
                 build.check(fn(*args), f"{kernel} variant {name!r}")
 
             call()
             torch.cuda.synchronize()
+            # the whole kernel's output bits, to hold against another csrc/'s
+            digest = hashlib.sha256(keep[-1].view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
             t = (cs.cuda_ms(call), cs.cuda_ms(call))
             line = f"[stage_times] {kernel}: {name}{label}: {t[0]:.4f} {t[1]:.4f} ms"
             if i == 0:  # the whole kernel, uncut
                 t += (cs.device_ms(call, LAUNCHES.get(kernel, 1), csrcs=(csrc,)),)
-                line += f"; on the device {t[2]:.4f} ms"
+                line += f"; on the device {t[2]:.4f} ms; output sha256 {digest}"
             times[name + label] = t
             print(line, flush=True)
     del operands

@@ -36,9 +36,14 @@ raises, and the run then exits non-zero without printing a result:
      stated beside each (K6 with its weights packed once, as the ConvLSTM
      calls it), and for K1 and K2 the kernel the wrapper took
      (tensor cores or FMAs); K2 on compact tables must equal K3 bit for
-     bit; the tensor-core kernels (K1, K2, K3, K5) also in bf16 at the
-     small model's widths, which the f32 reference phase does not send
-     through them; K6 and K7 must equal their plain versions to 1e-6
+     bit; K2's transposed mode (K2t) must take the tensor cores in bf16
+     (x by one TMA tensor copy a chunk) and equal K2 on flat tables run on
+     the permuted x bit for bit; v3 must equal K5 on the grid's inner 12 x
+     12 bit for bit in both dtypes (K5's kernel reads the padded grid in
+     place), its bound counting K5's work; the tensor-core kernels (K1,
+     K2, K2t, K3, K5 and its v3, v6 schedules) also in bf16 at the small
+     model's widths, which the f32 reference phase does not send through
+     them; K6 and K7 must equal their plain versions to 1e-6
      in f32, their integer sums being exact, and K7 bit for bit in both
      dtypes (with c6's weights packed once); timed with CUDA events (the
      span of 20 calls, the host's gaps included) and, in bf16, by the
@@ -69,7 +74,7 @@ raises, and the run then exits non-zero without printing a result:
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
-library's.
+library's (the heads' in each of their three modes).
 The last three lines are the kernel summary (JSON), the card's name and
 power limit, and the result (JSON).
 """
@@ -105,7 +110,7 @@ SOURCES = {
                       "aglayout_tpu/ops/pallas_spade_c6_int8.py:113"),
     "spade_apply_t": ("aglayout_tpu_torch/csrc/spade_apply.cu",
                       "aglayout_tpu/ops/pallas_spade_conv.py:613"),
-    "typed_c3_expand_v3": ("aglayout_tpu_torch/csrc/typed_c3_expand_v3.cu",
+    "typed_c3_expand_v3": ("aglayout_tpu_torch/csrc/typed_c3_expand.cu",
                            "aglayout_tpu/ops/pallas_typed_expand.py:148"),
     "typed_c3_expand_v5": ("aglayout_tpu_torch/csrc/typed_c3_expand.cu",
                            "aglayout_tpu/ops/pallas_typed_expand.py:520"),
@@ -342,12 +347,14 @@ def phase_build():
 
     sizes = [(resblocks.trunk_tc_smem(c)[1], lib.residual_trunk_tc_smem(c))
              for c in (16, 32, 48, 64, 128)]
-    for h, w, k, o, f, compact in ((64, 64, 7, 3, 8, False), (128, 128, 7, 3, 16, True),
-                                   (128, 128, 7, 3, 16, False), (80, 64, 5, 4, 5, False),
-                                   (64, 64, 7, 3, 8, True), (128, 128, 3, 1, 16, True)):
-        py = spade_conv.head_tc_layout(h, w, k, o, f, compact)[1]
-        sizes.append((py, lib.spade_few_out_conv_tc_smem(h, w, k, o, f, int(compact))))
-        if compact:
+    # mode: 0 flat, 1 compact, 2 transposed x (flat tables)
+    for h, w, k, o, f, mode in ((64, 64, 7, 3, 8, 0), (128, 128, 7, 3, 16, 1),
+                                (128, 128, 7, 3, 16, 0), (80, 64, 5, 4, 5, 0), (64, 64, 7, 3, 8, 1),
+                                (128, 128, 3, 1, 16, 1), (64, 64, 7, 3, 8, 2), (128, 128, 7, 3, 16, 2),
+                                (128, 128, 7, 3, 8, 2), (80, 64, 5, 4, 5, 2), (32, 64, 3, 1, 8, 2)):
+        py = spade_conv.head_tc_layout(h, w, k, o, f, mode == 1, mode == 2)[1]
+        sizes.append((py, lib.spade_few_out_conv_tc_smem(h, w, k, o, f, mode)))
+        if mode == 1:
             sizes.append((py, lib.spade_few_out_conv8_smem(h, w, k, o, f)))
     sizes += [(typed_expand.typed_tc_smem(c2, c4, s3), lib.typed_c3_expand_smem(c2, c4, s3))
               for c2, c4, s3 in ((128, 256, 32), (32, 64, 32), (176, 64, 16), (192, 384, 32),
@@ -513,10 +520,15 @@ def typed_inputs(model, dtype, gen, dev):
             model.layout_encoder.c3.weight)
 
 
+def padded_grid(z2):
+    """The (n, 12, 12, c2) type grid zero-padded to v3's (n, 13, 13, c2)."""
+    return torch.nn.functional.pad(z2, (0, 0, 0, 1, 0, 1))
+
+
 def typed_v3_inputs(model, dtype, gen, dev):
     """The same for the typed v3 kernel: the grid zero-padded to 13 x 13."""
     z2, *rest = typed_inputs(model, dtype, gen, dev)
-    return (torch.nn.functional.pad(z2, (0, 0, 0, 1, 0, 1)), *rest)
+    return (padded_grid(z2), *rest)
 
 
 def head_inputs(dec, mode: str, dtype, gen, dev):
@@ -607,7 +619,9 @@ def phase_kernels(model64, model128, model_int8):
     conv_ops = lambda x, w, o: 2.0 * x.shape[0] * x.shape[2] * x.shape[3] * w[0].numel() * o  # noqa: E731
     head_ops = lambda a: (conv_ops(a[0], a[3], 3), BF16)  # noqa: E731
     # W3z: 14 row types x 12 (13 on the padded grid) rows an object
-    typed_ops = lambda a, rows=14 * 12: (2.0 * a[0].shape[0] * rows * a[6].numel(), BF16)  # noqa: E731
+    # W3z: 14 row types x 12 rows an object (v3 too: its padded row and
+    # column are zeros by contract, so its function's work is K5's)
+    typed_ops = lambda a: (2.0 * a[0].shape[0] * 14 * 12 * a[6].numel(), BF16)  # noqa: E731
 
     def typed_v6_ops(a):
         # v6 skips the product of a row type that no output row has: count
@@ -646,7 +660,7 @@ def phase_kernels(model64, model128, model_int8):
          lambda dt: table_inputs(dec128.spade_4, 128, 128, False, dt, gen, dev),
          lambda a: (3.0 * a[0].numel(), F32)),
         ("typed_c3_expand_v3", k["typed_c3_expand_v3"], te.typed_c3_expand_v3_plain,
-         lambda dt: typed_v3_inputs(model128, dt, gen, dev), lambda a: typed_ops(a, 14 * 13)),
+         lambda dt: typed_v3_inputs(model128, dt, gen, dev), typed_ops),
         ("typed_c3_expand_v5", k["typed_c3_expand_v5"], te.typed_c3_expand_v5_plain,
          lambda dt: typed_inputs(model128, dt, gen, dev), typed_ops),
         ("typed_c3_expand_v6", k["typed_c3_expand_v6"], te.typed_c3_expand_v6_plain,
@@ -676,6 +690,22 @@ def phase_kernels(model64, model128, model_int8):
                     if not torch.equal(got, k["spade_few_out_conv8"](*args, 16)):
                         raise AssertionError("K2 on compact tables differs from K3")
                     log(f"[kernel] {K2C} bf16 equals spade_few_out_conv8 bit for bit")
+                if name == K2T and dt == torch.bfloat16:
+                    # the tensor-core kernel with x by a tensor copy, applied in
+                    # place; the rest is flat K2's: its bits on x permuted
+                    flat = k[K2](args[0].permute(2, 3, 0, 1).contiguous(), *args[1:], 16)
+                    if taken != "tc" or not torch.equal(got, flat):
+                        raise AssertionError(f"K2t took {taken!r}, or differs from flat K2 on "
+                                             "the permuted x")
+                    log(f"[kernel] {K2T} bf16 took the tensor cores and equals flat K2 on the "
+                        "permuted x bit for bit")
+                if name == "typed_c3_expand_v3":
+                    # K5's kernel reading the padded grid's 12 x 12 in place: K5's bits
+                    if not torch.equal(got, k["typed_c3_expand"](args[0][:, :12, :12].contiguous(),
+                                                                 *args[1:])):
+                        raise AssertionError(f"typed v3 {dt}: not K5's bits on the inner grid")
+                    log(f"[kernel] typed_c3_expand_v3 {str(dt)[6:]} equals typed_c3_expand on "
+                        "the inner 12 x 12 grid bit for bit")
                 ms_plain_a = cuda_ms(lambda: plain(*args))
                 ms_a = cuda_ms(lambda: kernel(*args))
                 ms_b = cuda_ms(lambda: kernel(*args))
@@ -796,10 +826,12 @@ def phase_kernels_small(k, gen, dev, limit: float):
     """The tensor-core kernels in bf16 at the widths of the small reference
     model (conv_dim=16: C = 16 in the trunk and the c4 head, 32 at the c7
     head, c2 = 32, c4 = 64), which generate reaches in f32 only, where they
-    run their FMA kernels: K1, K2, K3, K5 and its v6 schedule."""
+    run their FMA kernels: K1, K2, K2t, K3, K5 and its v3 and v6 schedules;
+    K2t also equal to K2 on the permuted x, and v3 to K5 on the inner grid,
+    bit for bit."""
     from aglayout_tpu_torch.ops.resblocks import residual_trunk_plain
     from aglayout_tpu_torch.ops.spade_conv import spade_few_out_conv8_plain, spade_few_out_conv_plain
-    from aglayout_tpu_torch.ops.typed_expand import typed_c3_expand_plain
+    from aglayout_tpu_torch.ops.typed_expand import typed_c3_expand_plain, typed_c3_expand_v3_plain
 
     dt = torch.bfloat16
     rnd = lambda *shape: torch.randn(*shape, generator=gen).to(dev)  # noqa: E731
@@ -808,25 +840,38 @@ def phase_kernels_small(k, gen, dev, limit: float):
              *(torch.stack([1 + 0.1 * rnd(2, 16), 0.1 * rnd(2, 16)], 1) for _ in range(2)))
     flat = [(s + 0.3 * rnd(3, 8, 5, 16, 64)).to(dt) for s in (1.0, 0.0)]
     head4 = (rnd(3, 16, 64, 64).to(dt), *flat, 0.05 * rnd(3, 16, 7, 7), rnd(3), 8)
+    head4t = (head4[0].permute(2, 3, 0, 1).contiguous(), *head4[1:])
     tabs = [(s + 0.3 * rnd(3, 8, 5, 32, 40)).to(dt) for s in (1.0, 0.0)]
     head = (rnd(3, 32, 128, 128).to(dt), *tabs, 0.05 * rnd(3, 32, 7, 7), rnd(3), 16)
     n = 9
     typed = (rnd(n, 12, 12, 32).to(dt), i32(13, (n, 14, 4)), i32(14, (n, 14, 4)), i32(14, (n, 32)),
              i32(14, (n, 32)), 0.5 * rnd(n, 2, 64), 0.05 * rnd(64, 32, 4, 4))
-    for name, plain, args in (("residual_trunk", residual_trunk_plain, trunk),
-                              (K2, spade_few_out_conv_plain, head4),
-                              ("spade_few_out_conv8", spade_few_out_conv8_plain, head),
-                              ("typed_c3_expand", typed_c3_expand_plain, typed),
-                              ("typed_c3_expand_v6", typed_c3_expand_plain, typed)):
+    typed_v3 = (padded_grid(typed[0]), *typed[1:])
+    k2t = functools.partial(k[K2], transposed=True)
+    outs = {}
+    for name, kernel, plain, args in (
+            ("residual_trunk", k["residual_trunk"], residual_trunk_plain, trunk),
+            (K2, k[K2], spade_few_out_conv_plain, head4),
+            (K2T, k2t, functools.partial(spade_few_out_conv_plain, transposed=True), head4t),
+            ("spade_few_out_conv8", k["spade_few_out_conv8"], spade_few_out_conv8_plain, head),
+            ("typed_c3_expand", k["typed_c3_expand"], typed_c3_expand_plain, typed),
+            ("typed_c3_expand_v3", k["typed_c3_expand_v3"], typed_c3_expand_v3_plain, typed_v3),
+            ("typed_c3_expand_v6", k["typed_c3_expand_v6"], typed_c3_expand_plain, typed)):
         before = route_counts()
         with torch.no_grad():
-            err, rel = errors(k[name](*args), plain(*args))
+            outs[name] = kernel(*args)
+            err, rel = errors(outs[name], plain(*args))
         taken = routes_taken(before)
         log(f"[kernel] {name} bf16 at the small model's widths{' (' + taken + ')' if taken else ''}: "
             f"max abs err {err:.3e}, rel {rel:.3e} (tol {limit:.0e})")
-        if rel > limit or taken not in ("", "tc"):
+        if rel > limit or taken not in ("", "tc") or (name == K2T and taken != "tc"):
             raise AssertionError(f"{name}: the small-width kernel disagrees with its plain version "
                                  "or took its FMA kernel")
+    if not (torch.equal(outs[K2T], outs[K2])
+            and torch.equal(outs["typed_c3_expand_v3"], outs["typed_c3_expand"])):
+        raise AssertionError("small widths: K2t is not K2's bits on the permuted x, or v3 not K5's")
+    log(f"[kernel] small widths: {K2T} equals {K2} on the permuted x, typed_c3_expand_v3 equals "
+        "typed_c3_expand on the inner grid, bit for bit")
 
 
 def phase_reference(size: int, expect, int8: bool = False, **cfg_kw):

@@ -805,3 +805,71 @@ def test_tc_wrappers_raise_on_what_no_kernel_takes(cuda):
     with pytest.raises(ValueError, match="with f=4"):
         spade_few_out_conv(x, a_tab, b_tab, torch.zeros(3, 64, 7, 7, device=cuda), None, 4)
     assert launches == (residual_trunk.launches, spade_few_out_conv.launches)
+
+
+# ---- K2t (the transposed mode on the tensor-core kernel, x by a TMA tensor
+# copy) and v3 (K5's kernel reading the zero-padded grid in place)
+
+
+def _transposed_case(cuda, b, c, h, w, f, seed):
+    """x (h, w, b, c) bf16 and flat tables (b, h / f, 5, c, w) around the
+    folded affine's scale (A near 1, B near 0)."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(h, w, b, c, generator=g).to(cuda, torch.bfloat16)
+    a_tab = (1 + 0.3 * torch.randn(b, h // f, 5, c, w, generator=g)).to(cuda, torch.bfloat16)
+    b_tab = (0.3 * torch.randn(b, h // f, 5, c, w, generator=g)).to(cuda, torch.bfloat16)
+    return x, a_tab, b_tab, g
+
+
+# B 2-8, C 16-128, W 64 and 128, K 3/5/7, O 1-4, f 8 and 16, H other than
+# W; the first and last tiles' halos leave the image, which `edge` checks
+@pytest.mark.parametrize("b,c,h,w,k,o,f", [(2, 16, 64, 64, 7, 3, 8), (3, 128, 128, 128, 7, 3, 16),
+                                           (5, 32, 64, 128, 5, 4, 16), (8, 64, 80, 64, 3, 1, 8),
+                                           (4, 48, 48, 64, 5, 2, 8), (2, 128, 32, 128, 3, 4, 16)])
+def test_transposed_head_tc_kernel_matches_plain(cuda, b, c, h, w, k, o, f):
+    x, a_tab, b_tab, g = _transposed_case(cuda, b, c, h, w, f, seed=50 + c + k)
+    weight = torch.randn(o, c, k, k, generator=g).mul(0.02).to(cuda)
+    bias = torch.randn(o, generator=g).to(cuda)
+    before = dict(spade_few_out_conv.route_launches)
+    got = spade_few_out_conv(x, a_tab, b_tab, weight, bias, f, transposed=True)
+    want = spade_few_out_conv_plain(x, a_tab, b_tab, weight, bias, f, transposed=True)
+    assert _route_delta(spade_few_out_conv, before) == {"tc": 1}
+    edge = _border(h, w, k // 2)
+    assert got.shape == (b, o, h, w) and _rel(got, want) < TOL["bf16"]
+    assert _rel(got[..., edge], want[..., edge]) < TOL["bf16"]
+
+
+# the c4 head's shape and the c7 head's
+@pytest.mark.parametrize("b,c,size,f", [(3, 64, 64, 8), (3, 128, 128, 16)])
+def test_transposed_head_equals_flat_bit_for_bit(cuda, b, c, size, f):
+    """K2t's product, sums and roundings are flat K2's: the same bits as K2
+    on the same flat tables with x permuted to (B, C, H, W)."""
+    x, a_tab, b_tab, g = _transposed_case(cuda, b, c, size, size, f, seed=60 + c)
+    weight = torch.randn(3, c, 7, 7, generator=g).mul(0.02).to(cuda)
+    bias = torch.randn(3, generator=g).to(cuda)
+    before = dict(spade_few_out_conv.mode_launches)
+    got = spade_few_out_conv(x, a_tab, b_tab, weight, bias, f, transposed=True)
+    flat = spade_few_out_conv(x.permute(2, 3, 0, 1).contiguous(), a_tab, b_tab, weight, bias, f)
+    after = spade_few_out_conv.mode_launches
+    assert {m: after[m] - before[m] for m in after} == {"flat": 1, "compact": 0, "transposed": 1}
+    assert torch.equal(got, flat)
+
+
+# n = 13: not a multiple of anything the old group schedule liked; the
+# published width in both dtypes, and K5's widened shapes in bf16
+@pytest.mark.parametrize("dt,n,c2,c4,s3", [("f32", 13, 128, 256, 32), ("bf16", 13, 128, 256, 32),
+                                           ("bf16", 13, 192, 384, 32), ("bf16", 13, 16, 64, 32),
+                                           ("f32", 13, 16, 64, 32), ("bf16", 140, 192, 384, 32)])
+def test_typed_v3_equals_k5_on_the_inner_grid(cuda, dt, n, c2, c4, s3):
+    """v3 launches K5's kernel on the padded grid, read in place: K5's bits
+    on the inner 12 x 12, whatever the padding holds."""
+    z2, *rest = _typed_case_at(cuda, dt, n, c2, c4, s3, seed=70 + c2)
+    z2p = torch.nn.functional.pad(z2, (0, 0, 0, 1, 0, 1))
+    v3 = typed_expand.typed_c3_expand_v3
+    before = v3.launches
+    got = v3(z2p, *rest)
+    assert v3.launches == before + 1 and got.shape == (n, c4, s3, s3)
+    want = typed_c3_expand(z2, *rest)
+    assert torch.equal(got, want)
+    z2p[:, 12], z2p[:, :, 12] = 7.0, -3.0  # the kernel reads none of it
+    assert torch.equal(v3(z2p, *rest, group=1), want)

@@ -288,8 +288,9 @@ def test_head_kernel_route(c, h, w, f, k, o, dtype, compact, want):
 
 def test_head_kernel_route_by_alignment_and_mode():
     """A misaligned x or table sends the bf16 head to the FMA kernel (its
-    copies want 16 bytes); the transposed mode always takes the FMA kernel;
-    K3 takes only the tensor-core shapes in bf16."""
+    copies want 16 bytes); the transposed mode takes the tensor cores in
+    bf16 where C % 16 == 0, the FMA kernel in f32 and at C = 24; K3 takes
+    only the tensor-core shapes in bf16."""
     weight = torch.zeros(3, 64, 7, 7)
     x = _aligned(2 * 64 * 64 * 64).view(2, 64, 64, 64)
     shifted = _aligned(2 * 64 * 64 * 64, offset=1).view(2, 64, 64, 64)
@@ -298,7 +299,10 @@ def test_head_kernel_route_by_alignment_and_mode():
     assert spade_few_out_conv_route(x, weight, 8, tables=(tab, tab[:-1].view(-1)[1:])) == "fma"
     assert spade_few_out_conv_route(x, weight, 8, tables=(tab, tab)) == "tc"
     xt = _aligned(2 * 64 * 64 * 64).view(64, 64, 2, 64)
-    assert spade_few_out_conv_route(xt, weight, 8, transposed=True) == "fma"
+    assert spade_few_out_conv_route(xt, weight, 8, transposed=True) == "tc"
+    assert spade_few_out_conv_route(xt.float(), weight, 8, transposed=True) == "fma"
+    xt24 = _aligned(2 * 24 * 64 * 64).view(64, 64, 2, 24)
+    assert spade_few_out_conv_route(xt24, torch.zeros(3, 24, 7, 7), 8, transposed=True) == "fma"
     assert spade_few_out_conv_route(x, weight, 8, compact=True, transposed=True) is None
     assert spade_few_out_conv8_supports(x, weight, 8) and not spade_few_out_conv8_supports(
         shifted, weight, 8)
@@ -324,6 +328,6 @@ def test_typed_kernel_predicates(c2, c4, s3, dtype, want):
     weight = torch.zeros(c4, c2, 4, 4)
     assert {v for v, ok in typed_expand.SUPPORTS.items() if ok(z2, weight, s3)} == want
     padded = _aligned(3 * 13 * 13 * c2, dtype).view(3, 13, 13, c2)
-    assert typed_expand.typed_c3_expand_v3_supports(padded, weight, s3) == (
-        c2 % 16 == 0 and c4 % {torch.bfloat16: 32, torch.float32: 8}[dtype] == 0)
+    # v3 runs K5's kernel on the padded grid, read in place: K5's limits
+    assert typed_expand.typed_c3_expand_v3_supports(padded, weight, s3) == ("v4" in want)
     assert not typed_expand.typed_c3_expand_supports(padded, weight, s3)  # the raw grid is due
