@@ -51,7 +51,8 @@ SIGNATURES = {
     "spade_few_out_conv8_smem": [_I, _I, _I, _I, _I],
     # x, a_tab, b_tab, out, B, C, H, W, f, cb, is_bf16, stream
     "spade_apply8": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "spade_apply_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x, a_tab, b_tab, out, B, C, H, W, f, is_bf16, stream
+    "spade_apply_t": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # z2, idxR, lsel, selR, selC, ab, wk, out, n, c2, c4, s3, is_bf16, stream
     "typed_c3_expand": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # c2, c4, s3 -> bytes of shared memory a block of the bf16 kernel takes (no cudaError_t)

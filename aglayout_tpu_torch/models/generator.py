@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from aglayout_tpu_torch.config import Config
 from aglayout_tpu_torch.models.convlstm import LayoutFuser
+from aglayout_tpu_torch.models.sn import SNConv2d, SNLinear
 from aglayout_tpu_torch.models.layers import (
     Conv2d,
     ConvTranspose2d,
@@ -627,7 +628,9 @@ class Generator(nn.Module):
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every parameter with torch's default initialisers from
     `generator`, and give every BN non-trivial running statistics and
-    affines, so that a seeded model exercises the eval affines."""
+    affines, so that a seeded model exercises the eval affines; a
+    spectrally normalised layer draws its weight and bias as a conv's or a
+    linear's, and u and v as normalised normals."""
 
     def uniform_(t, fan_in):
         bound = 1.0 / fan_in ** 0.5
@@ -644,6 +647,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             uniform_(mod.weight, fan_in)
             if mod.bias is not None:
                 uniform_(mod.bias, fan_in)
+        elif isinstance(mod, (SNConv2d, SNLinear)):
+            mod.reset_parameters(generator)
         elif isinstance(mod, nn.Embedding):
             normal_(mod.weight, 0.0, 1.0)
         elif isinstance(mod, MaskedBatchNorm):

@@ -536,30 +536,42 @@ def spade_apply_t_plain(x, a_tab, b_tab, f: int):
     return torch.relu(x.float() * a + b).to(x.dtype)
 
 
+def spade_apply_t_supports(x, a_tab, b_tab, f: int) -> bool:
+    """Whether the kernel of `spade_apply_t` takes x (B, C, H, W) on flat
+    tables: f >= 5 dividing H, W a multiple of the 16-byte vector (8 bf16,
+    4 f32), x and both tables 16-byte aligned (the kernel's vector loads
+    of each). It stages nothing, so any W and f beyond that. A pure
+    function of shapes, dtype and alignment."""
+    if x.dtype not in _DTYPES or x.dim() != 4:
+        return False
+    h, w = x.shape[2:]
+    return (f >= 5 and h % f == 0 and w % (16 // x.element_size()) == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, a_tab, b_tab)))
+
+
 def spade_apply_t(x, a_tab, b_tab, f: int):
     """relu(x * A + B) from flat SPADE tables; see `spade_apply_t_plain`.
 
     A CPU tensor takes the plain version. A CUDA tensor launches
-    `csrc/spade_apply.cu` (its flat-table entry point) or raises.
+    `csrc/spade_apply.cu` (its flat-table kernel) or raises a ValueError
+    (`spade_apply_t_supports` says beforehand).
     """
     if x.device.type == "cpu":
         return spade_apply_t_plain(x, a_tab, b_tab, f)
     if x.device.type != "cuda":
         raise ValueError(f"spade_apply_t: unsupported device {x.device}")
     b, c, h, w = x.shape
-    if f < 5 or h % f or w % 8:
-        raise ValueError(f"spade_apply_t: x shape {tuple(x.shape)} with f={f} not supported")
+    if f < 5 or h % f or w % (16 // x.element_size()):
+        raise ValueError(f"spade_apply_t: x shape {tuple(x.shape)} with f={f} not supported "
+                         "(f >= 5 dividing H, W a multiple of 16 bytes)")
     _check_common("spade_apply_t", x, a_tab, b_tab, (b, h // f, 5, c, w))
-    if x.data_ptr() % 16:
-        raise ValueError("spade_apply_t: x must be 16-byte aligned (the kernel's vector loads)")
-    # the block's 5 row classes x cb channels x W columns of both tables, as f32
-    cb = next((cb for cb in (16, 8, 4, 2, 1) if c % cb == 0 and 40 * cb * w <= build.SMEM_LIMIT), 0)
-    if not cb:
-        raise ValueError(f"spade_apply_t: W={w} does not fit shared memory")
+    if not spade_apply_t_supports(x, a_tab, b_tab, f):
+        raise ValueError("spade_apply_t: x and the tables must be 16-byte aligned (the kernel's "
+                         "vector loads)")
     out = torch.empty_like(x)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = build.library().spade_apply_t(
-        x.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(), out.data_ptr(), b, c, h, w, f, cb,
+        x.data_ptr(), a_tab.data_ptr(), b_tab.data_ptr(), out.data_ptr(), b, c, h, w, f,
         _DTYPES[x.dtype], stream,
     )
     build.check(err, "spade_apply_t")

@@ -1,15 +1,17 @@
 """Where the time of the tensor-core kernels goes: the residual trunk (K1),
 the RGB heads (K2 at the c4 head, K3 at the c7 head, K2's transposed mode
 K2t at the c7 head's shape), the typed c3 expansion (K5 and its v3, v5, v6
-schedules) and the int8 convs (K6, K7), as one-off variants of a kernel
-with a stage cut out, timed on the card.
+schedules), the int8 convs (K6, K7) and SPADE-4's apply (K4 on compact
+tables, K4' on flat ones), as one-off variants of a kernel with a stage
+cut out, timed on the card.
 
-    python3 -m aglayout_tpu_torch.stage_times k1 k2 k2t k3 k5 k5v3 k5v5 k5v6 k6 k7
+    python3 -m aglayout_tpu_torch.stage_times k1 k2 k2t k3 k4 k4t k5 k5v3 k5v5 k5v6 k6 k7
     python3 -m aglayout_tpu_torch.stage_times --csrc <an earlier csrc/> k1_fma k2_fma k2t_fma k3_fma k5_serial
     python3 -m aglayout_tpu_torch.stage_times --csrc <a csrc/ before K6's wgmma kernel> k6_mma_sync
     python3 -m aglayout_tpu_torch.stage_times --csrc <a csrc/ before K7's wgmma kernel> k5v5_scratch k7_mma_sync
     python3 -m aglayout_tpu_torch.stage_times --csrc <a csrc/ before v3 ran on K5's kernel> k5v3_group
-    python3 -m aglayout_tpu_torch.stage_times --whole [--box] [--csrc <a csrc/>] k2t k5 k5v3 k5v5 k5v6 k6 k7
+    python3 -m aglayout_tpu_torch.stage_times --csrc <a csrc/ before K4''s flat kernel> k4t_smem
+    python3 -m aglayout_tpu_torch.stage_times --whole [--box] [--csrc <a csrc/>] k2t k4 k4t k5 k5v3 k5v5 k5v6 k6 k7
 
 Needs one CUDA card and `nvcc`. Each variant is the shipped source with a
 few lines replaced (a call removed, a loop bound set to 0), copied with the
@@ -40,7 +42,11 @@ instantiation (`typed_c3_expand_v6`, on the same random inputs), and
 three launches of `csrc/conv_small_int8.cu` (the two quantise passes, the
 wgmma product and its copies) and `k7` those of `csrc/spade_c6_int8.cu`
 (the max pass, the apply and quantise pass, the wgmma product, its weight
-and map copies). `k1_fma`,
+and map copies); `k4` the compact-table apply of `csrc/spade_apply.cu`
+(no table staging; its stores under a never-true condition, which keeps
+the loads) and `k4t` its flat-table kernel (the five row classes' table
+vectors from one address, so one load of each table; no stores; both;
+streaming cache hints on every load and store). `k1_fma`,
 `k2_fma`, `k2t_fma`, `k3_fma` and `k5_serial` cut the bf16 kernels those
 replaced (FMAs on the CUDA cores; one block an object, its stages one after
 the other), read with `--csrc` from a checkout that has them (K1's and
@@ -48,8 +54,9 @@ K2's FMA kernels still ship, for f32 and the shapes the tensor cores do not
 take); `k6_mma_sync` and `k7_mma_sync` the `mma.sync` kernels K6 and K7
 replaced, `k5v6_serial` the one-block-an-object v6 kernel K5-v6 replaced,
 `k5v5_scratch` the two-stage v5 kernel whose W3z went through a device
-scratch and `k5v3_group` the v3 kernel whose blocks took a group of objects
-for one weight chunk, from a `csrc/` that still has them (`EARLIER`),
+scratch, `k5v3_group` the v3 kernel whose blocks took a group of objects
+for one weight chunk and `k4t_smem` K4''s kernel that staged both flat
+tables in shared memory, from a `csrc/` that still has them (`EARLIER`),
 whole.
 """
 
@@ -179,6 +186,22 @@ K7_WGMMA = "        agl::wgmma_m64n256k32_s8(acc, da, db, sl | j);\n"
 # reads the sums through the tile, which keeps the products
 K7_STORE = "        if (co < C && y0 + row < H && x0 + 8 * h < W)\n"
 K7_NO_STORES = [(K7_STORE, "        if (co < C && y0 + row < H && x0 + 8 * h < W && tile[cl] == 0x7f)\n")]
+# ---- of csrc/spade_apply.cu (k4: the compact-table kernel; k4t: the flat-table one)
+K4_NO_STAGING = [_zero("  for (int i = threadIdx.x; i < tsize; i += THREADS) {")]
+# a store kept under a condition that no relu output meets (two negative
+# NaNs in bf16, one in f32), so that ptxas keeps the loads and the math
+K4_NO_STORES = [("    *reinterpret_cast<uint4*>(out + base) = v.raw;\n",
+                 "    if (v.raw.x == 0xffffffffu) *reinterpret_cast<uint4*>(out + base) = v.raw;\n")]
+K4T_LD = ("__device__ __forceinline__ uint4 ld16(const void* p) { return *reinterpret_cast<const "
+          "uint4*>(p); }\n")
+K4T_ST = "__device__ __forceinline__ void st16(void* p, uint4 v) { *reinterpret_cast<uint4*>(p) = v; }\n"
+# the five row classes' table vectors at one address: one load of each table
+K4T_ONE_TABLE = [("  const size_t ts = (size_t)C * W;  // one row class to the next\n",
+                  "  const size_t ts = 0;  // one row class to the next\n")]
+K4T_NO_STORES = [(K4T_ST, K4T_ST.replace("*reinterpret_cast", "if (v.x == 0xffffffffu) *reinterpret_cast"))]
+K4T_HINTS = [(K4T_LD, K4T_LD.replace("*reinterpret_cast<const uint4*>(p)",
+                                     "__ldcs(reinterpret_cast<const uint4*>(p))")),
+             (K4T_ST, K4T_ST.replace("*reinterpret_cast<uint4*>(p) = v", "__stcs(reinterpret_cast<uint4*>(p), v)"))]
 # ---- of the parent's csrc/conv_small_int8.cu (k6_mma_sync, with --csrc)
 K6_OLD_CONV = ("  conv_kernel<T><<<dim3(Cout / BN, (B + IM - 1) / IM), THREADS, smem, stream>>>(\n"
                "      qp, static_cast<const int8_t*>(wq), static_cast<const float*>(sw), am,\n"
@@ -236,6 +259,22 @@ VARIANTS = {
         ("product only, no output stores (no copies, no passes)",
          K7_NO_WEIGHTS + K7_NO_MAPS + K7_NO_STORES + K7_PASSES),
     ]),
+    "k4": ("spade_apply.cu", "spade_apply.cu", "spade_apply8", [
+        ("whole kernel", []),
+        ("no table staging", K4_NO_STAGING),
+        ("no stores (a store under a never-true condition)", K4_NO_STORES),
+    ]),
+    "k4t": ("spade_apply.cu", "spade_apply.cu", "spade_apply_t", [
+        ("whole kernel", []),
+        ("tables from one load (one row class for all five)", K4T_ONE_TABLE),
+        ("no stores (a store under a never-true condition)", K4T_NO_STORES),
+        ("x loads only (tables from one load, no stores)", K4T_ONE_TABLE + K4T_NO_STORES),
+        ("streaming cache hints (ld.global.cs, st.global.cs)", K4T_HINTS),
+    ]),
+    # the shared-memory kernel K4' had before its flat kernel (both tables
+    # staged as f32, a CTA per image, row block and cb channels): in an
+    # earlier csrc/ only (EARLIER)
+    "k4t_smem": ("spade_apply.cu", "spade_apply.cu", "spade_apply_t", [("whole kernel", [])]),
     # the bf16 kernels K1, K2, K3 and K5 replaced, from a checkout that has
     # them (--csrc): the FMA kernels of K1 and K2 still ship for f32 and the
     # shapes the tensor cores do not take, but no longer run in bf16 at these
@@ -303,7 +342,8 @@ EARLIER = {"k6_mma_sync": [build._P] * 6 + [build._I] * 7 + [build._P],
            "k5v6_serial": build.SIGNATURES["typed_c3_expand_v6"],
            "k5v5_scratch": [build._P] * 9 + [build._I] * 5 + [build._P],
            "k7_mma_sync": [build._P] * 7 + [build._I] * 7 + [build._P],
-           "k5v3_group": [build._P] * 8 + [build._I] * 6 + [build._P]}
+           "k5v3_group": [build._P] * 8 + [build._I] * 6 + [build._P],
+           "k4t_smem": [build._P] * 4 + [build._I] * 7 + [build._P]}
 V3_GROUP = 8  # the objects a block of k5v3_group took (its wrapper's default)
 # hand-written launches a call of the whole kernel, where more than one
 LAUNCHES = {"k6": 3, "k6_mma_sync": 3, "k5v5_scratch": 2, "k7": 3, "k7_mma_sync": 2}
@@ -385,6 +425,14 @@ def _operands(kernel: str, box: bool = False):
             else:
                 tail = (b, c, h, w, k, o, f, spade_conv._channel_chunk(c) if kernel == "k3_fma" else 0,
                         1, stream)
+        elif kernel.startswith("k4"):  # SPADE-4's apply, compact (k4) or flat tables
+            x, a_tab, b_tab = cs.table_inputs(model.decoder.spade_4, 128, 128, kernel == "k4", dt,
+                                              gen, dev)
+            b, c, h, w = x.shape
+            out = torch.empty_like(x)
+            keep = (x, a_tab, b_tab, out)
+            cb = [] if kernel == "k4t" else [spade_conv._channel_chunk(c)]  # the CTA's channels
+            tail = (b, c, h, w, 16, *cb, 1, stream)
         elif kernel.startswith("k6"):
             import torch.nn.functional as F
 

@@ -1,14 +1,18 @@
-"""Weight bridge: JAX generator trees -> this package's `state_dict`.
+"""Weight bridge: JAX generator and discriminator trees -> this package's
+`state_dict`s.
 
-The inverse of `aglayout_tpu/utils/torch_import.py::import_generator`: it
-takes the JAX (params, batch_stats) trees as numpy arrays (or anything
-`np.asarray` reads) and returns a `state_dict` keyed by the reference's
-netG names, which `Generator.load_state_dict` takes as it is. Layouts:
+The inverse of `aglayout_tpu/utils/torch_import.py::import_generator` and
+`import_*_discriminator`: it takes the JAX (params, batch_stats) trees as
+numpy arrays (or anything `np.asarray` reads) and returns a `state_dict`
+keyed by the reference's netG / netD_* names, which the port's modules'
+`load_state_dict` takes as it is. Layouts:
 
   * Conv2d   HWIO -> (O, I, kh, kw)
   * ConvT2d  flipped forward-conv HWIO -> (I, O, kh, kw), spatially flipped back
   * Linear   (in, out) -> (out, in)
   * BatchNorm scale/bias -> weight/bias; mean/var -> running_mean/running_var
+  * spectral norm: kernel -> weight_orig (as a conv's or a linear's);
+    batch_stats .../sn/{u,v} -> weight_u/weight_v
 """
 
 from __future__ import annotations
@@ -33,9 +37,9 @@ class _StateBuilder:
             tree = tree[p]
         return np.asarray(tree, np.float32)
 
-    def conv(self, tkey, mpath, bias=True):
+    def conv(self, tkey, mpath, bias=True, weight="weight"):
         k = self._get(self.params, mpath + ("kernel",))
-        self.sd[tkey + ".weight"] = _tensor(np.transpose(k, (3, 2, 0, 1)))
+        self.sd[f"{tkey}.{weight}"] = _tensor(np.transpose(k, (3, 2, 0, 1)))
         if bias:
             self.sd[tkey + ".bias"] = _tensor(self._get(self.params, mpath + ("bias",)))
 
@@ -43,9 +47,22 @@ class _StateBuilder:
         k = self._get(self.params, mpath + ("kernel",))
         self.sd[tkey + ".weight"] = _tensor(np.transpose(k, (2, 3, 0, 1))[:, :, ::-1, ::-1])
 
-    def linear(self, tkey, mpath):
-        self.sd[tkey + ".weight"] = _tensor(self._get(self.params, mpath + ("kernel",)).T)
-        self.sd[tkey + ".bias"] = _tensor(self._get(self.params, mpath + ("bias",)))
+    def linear(self, tkey, mpath, bias=True, weight="weight"):
+        self.sd[f"{tkey}.{weight}"] = _tensor(self._get(self.params, mpath + ("kernel",)).T)
+        if bias:
+            self.sd[tkey + ".bias"] = _tensor(self._get(self.params, mpath + ("bias",)))
+
+    def _sn_state(self, tkey, mpath):
+        self.sd[tkey + ".weight_u"] = _tensor(self._get(self.stats, mpath + ("sn", "u")))
+        self.sd[tkey + ".weight_v"] = _tensor(self._get(self.stats, mpath + ("sn", "v")))
+
+    def sn_conv(self, tkey, mpath):
+        self.conv(tkey, mpath, weight="weight_orig")
+        self._sn_state(tkey, mpath)
+
+    def sn_linear(self, tkey, mpath, bias=True):
+        self.linear(tkey, mpath, bias, weight="weight_orig")
+        self._sn_state(tkey, mpath)
 
     def embed(self, tkey, mpath):
         self.sd[tkey + ".weight"] = _tensor(self._get(self.params, mpath + ("embedding",)))
@@ -120,4 +137,41 @@ def generator_state_dict_from_jax(params, batch_stats, image_size: int = 64,
     t.linear("attribute_encoder.c1", ae + ("c1",))
     t.bn("attribute_encoder.bn1", ae + ("bn1",))
     t.linear("attribute_encoder.c2", ae + ("c2",))
+    return t.sd
+
+
+def _d_trunk(t: _StateBuilder, num_blocks: int) -> None:
+    """main.0 OptimizedBlock and main.1.. DResidualBlocks; `sc` where the tree has it."""
+    for i in range(num_blocks):
+        convs = ("0", "2") if i == 0 else ("1", "3")
+        for name, conv in zip(convs, ("conv1", "conv2")):
+            t.sn_conv(f"main.{i}.resi.{name}", (f"block{i}", conv))
+        if "sc" in t.params[f"block{i}"]:
+            t.sn_conv(f"main.{i}.sc", (f"block{i}", "sc"))
+
+
+def image_discriminator_state_dict_from_jax(params, batch_stats) -> dict:
+    """JAX ImageDiscriminator (params, batch_stats) -> netD_image `state_dict`."""
+    t = _StateBuilder(params, batch_stats)
+    _d_trunk(t, 5)
+    t.sn_linear("classifier", ("classifier",), bias=False)
+    return t.sd
+
+
+def object_discriminator_state_dict_from_jax(params, batch_stats) -> dict:
+    """JAX ObjectDiscriminator (params, batch_stats) -> netD_object `state_dict`."""
+    t = _StateBuilder(params, batch_stats)
+    _d_trunk(t, 5)
+    t.sn_linear("classifier_src", ("classifier_src",))
+    t.sn_linear("classifier_cls", ("classifier_cls",))
+    return t.sd
+
+
+def attribute_discriminator_state_dict_from_jax(params, batch_stats,
+                                                extra_block: bool = False) -> dict:
+    """JAX AttributeDiscriminator (params, batch_stats) -> netD_attribute
+    `state_dict`; six blocks with `extra_block`."""
+    t = _StateBuilder(params, batch_stats)
+    _d_trunk(t, 6 if extra_block else 5)
+    t.sn_linear("classifier_att", ("classifier_att",))
     return t.sd

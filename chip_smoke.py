@@ -34,7 +34,9 @@ raises, and the run then exits non-zero without printing a result:
      transposed mode and the typed v3, which no model path calls, at the
      c7 head's and K5's), in bf16 and in f32 (TF32 off), with the tolerance
      stated beside each (K6 with its weights packed once, as the ConvLSTM
-     calls it), and for K1 and K2 the kernel the wrapper took
+     calls it; K4 and K4' bit for bit in bf16 and to 1e-6 in f32, K4' also
+     equal to K4 on K4's tables made flat in both dtypes), and for K1 and
+     K2 the kernel the wrapper took
      (tensor cores or FMAs); K2 on compact tables must equal K3 bit for
      bit; K2's transposed mode (K2t) must take the tensor cores in bf16
      (x by one TMA tensor copy a chunk) and equal K2 on flat tables run on
@@ -70,7 +72,14 @@ raises, and the run then exits non-zero without printing a result:
      kernels off and f32 on the CPU with the conv_dim=12 limits; then the
      three kernels alone at that shape, on the path's inputs and on random
      ones at B=128, against the plain expansion (2e-2) and v5, v6 against
-     v4 bit for bit.
+     v4 bit for bit;
+ 11. discriminators: the image, object and attribute Ds at the 128^2
+     model's widths (d_conv_dim 64, 179 classes, 106 attributes, six
+     blocks in the attribute D), the image D on B=32 128^2 images, the
+     others on 320 64^2 crops, in bf16 and f32 (TF32 off): u and v after
+     one `update_stats` call against the CPU's, the f32 logits against the
+     CPU's on a slice, bf16 against f32, outputs finite, each forward timed
+     (no kernel of the port: cuDNN's convs).
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -593,6 +602,7 @@ def phase_kernels(model64, model128, model_int8):
     from aglayout_tpu_torch.ops.resblocks import residual_trunk_plain
     from aglayout_tpu_torch.ops.spade_c6_int8 import spade_c6_int8_plain
     from aglayout_tpu_torch.ops.spade_conv import (
+        compact_to_flat,
         spade_apply8_plain,
         spade_apply_t_plain,
         spade_few_out_conv8_plain,
@@ -614,8 +624,11 @@ def phase_kernels(model64, model128, model_int8):
     # an order difference can flip a rounding (one bf16 ulp is 2^-8).
     tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     # the two int8 kernels sum exact integers, and the plain versions make
-    # the same f32 products around them: 1e-6 in f32
-    exact = {"conv_small_int8", "spade_c6_int8"}
+    # the same f32 products around them: 1e-6 in f32. The two SPADE applies
+    # compute relu(x * A + B) once in f32: in bf16 x * A is exact, so they
+    # give the plain version's bits; in f32 their fused multiply-add
+    # differs from its product and sum by a rounding: 1e-6
+    exact = {"conv_small_int8", "spade_c6_int8", "spade_apply8", "spade_apply_t"}
     conv_ops = lambda x, w, o: 2.0 * x.shape[0] * x.shape[2] * x.shape[3] * w[0].numel() * o  # noqa: E731
     head_ops = lambda a: (conv_ops(a[0], a[3], 3), BF16)  # noqa: E731
     # W3z: 14 row types x 12 (13 on the padded grid) rows an object
@@ -720,8 +733,20 @@ def phase_kernels(model64, model128, model_int8):
                 f"{'' if on_device is None else f'; kernel on the device {on_device:.4f} ms'}")
             if not torch.isfinite(got.float()).all() or rel > limit:
                 raise AssertionError(f"{name} {dt}: kernel disagrees with its plain version")
-            if name == "spade_c6_int8" and not torch.equal(got, want):
+            if ((name == "spade_c6_int8" or (name in exact and dt == torch.bfloat16))
+                    and not torch.equal(got, want)):
                 raise AssertionError(f"{name} {dt}: not its plain version's bits")
+            if name == "spade_apply_t":
+                # the same function as K4 on K4's compact tables made flat: K4's bits
+                with torch.no_grad():
+                    x, a_tab, b_tab = table_inputs(dec128.spade_4, 128, 128, True, dt, gen, dev)
+                    flat = (compact_to_flat(t, 16).contiguous() for t in (a_tab, b_tab))
+                    same = torch.equal(k[name](x, *flat, 16), k["spade_apply8"](x, a_tab, b_tab, 16))
+                del x, a_tab, b_tab
+                if not same:
+                    raise AssertionError(f"{name} {dt}: not K4's bits on K4's tables made flat")
+                log(f"[kernel] {name} {str(dt)[6:]} equals spade_apply8 on its tables made flat "
+                    "bit for bit")
             if dt == torch.bfloat16:
                 bound_ms, bound_by = bound(args, got, *work(args))
                 log(f"[kernel] {name} bf16: bound {bound_ms:.4f} ms by {bound_by}, "
@@ -1121,6 +1146,73 @@ def phase_fallthrough_int8():
                              "image disagrees with the CPU")
 
 
+def phase_discriminators(smi: str):
+    """The image, object and attribute discriminators at the 128^2 model's
+    published widths (d_conv_dim 64, 179 classes, 106 attributes, the
+    attribute D with its sixth block), seeded weights: the image D on B=32
+    128^2 images, the object and attribute Ds on the 320 64^2 crops of B=32
+    images of O=10 objects. They hold no kernel of the port: their convs
+    are cuDNN's (`F.conv2d`), as JAX leaves them to XLA. TF32 off. First one
+    call with `update_stats` on a slice (2 images, 4 crops) on the card in
+    f32 and bf16 and on the CPU: u and v of every layer against the CPU's
+    (1e-5), the f32 logits too (1e-4 of their max); then the whole batch
+    with `update_stats` off: finite, bf16 against f32 (5e-2 of the f32
+    logits' max: bf16 rounds each of 14 convs' inputs, weights and outputs
+    to 8 bits, then sums a 1024-channel map), the slice's f32 rows against
+    the CPU (1e-4: summation order, over 14 convs); each forward timed by
+    CUDA events in both dtypes."""
+    import copy
+    import dataclasses
+
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.models import build_discriminators
+
+    dev = torch.device("cuda")
+    cfg = config_for(128)
+    gen = torch.Generator().manual_seed(0)
+    images = torch.randn(32, 3, 128, 128, generator=gen)
+    crops = torch.randn(32 * O, 3, cfg.object_size, cfg.object_size, generator=gen)
+    cpu = build_discriminators(cfg, "cpu", seed=0)
+    f32 = tuple(copy.deepcopy(net).to(dev) for net in cpu)
+    bf16 = build_discriminators(dataclasses.replace(cfg, bf16=True), dev, seed=0)
+    outputs = lambda out: out if isinstance(out, tuple) else (out,)  # noqa: E731
+    set_tf32(False)
+    for name, x, nets, sl in zip(("image", "object", "attribute"), (images, crops, crops),
+                                 zip(cpu, f32, bf16), (2, 4, 4)):
+        ref, net32, net16 = nets
+        with torch.no_grad():
+            x_dev = x.to(dev)
+            want = outputs(ref(x[:sl], True))
+            got = outputs(net32(x_dev[:sl], True))
+            net16(x_dev[:sl], True)
+            rel_upd = max(errors(g.cpu(), w)[1] for g, w in zip(got, want))
+            uv = max((a.cpu() - b).abs().max().item()
+                     for (ka, a), (kb, b) in zip(net32.state_dict().items(), ref.state_dict().items())
+                     if ka.endswith(("weight_u", "weight_v")))
+            out32, out16 = outputs(net32(x_dev, False)), outputs(net16(x_dev, False))
+            torch.cuda.synchronize()
+            want = outputs(ref(x[:sl], False))
+            rel_ref = max(errors(g[:sl].cpu(), w)[1] for g, w in zip(out32, want))
+            rel_16 = max(errors(g, w)[1] for g, w in zip(out16, out32))
+            finite = all(torch.isfinite(o.float()).all().item() for o in out32 + out16)
+            ms = {"f32": [], "bf16": []}
+            for dt in ("f32", "bf16", "bf16", "f32"):  # alternated: the card drifts
+                net = net32 if dt == "f32" else net16
+                ms[dt].append(cuda_ms(lambda: net(x_dev, False), iters=10))
+        shapes = [tuple(o.shape) for o in out32]
+        log(f"[discriminators] {name} D on {tuple(x.shape)}: outputs {shapes}, finite {finite}; "
+            f"update_stats on {sl}: u, v against the CPU max abs err {uv:.3e} (tol 1e-5), logits "
+            f"rel {rel_upd:.3e} (tol 1e-4); update_stats off: f32 against the CPU rel "
+            f"{rel_ref:.3e} (tol 1e-4), bf16 against f32 rel {rel_16:.3e} (tol 5e-2)")
+        log(f"[discriminators] {name} D forward, CUDA events, 10 calls, in turns: bf16 "
+            f"{ms['bf16'][0]:.4f} {ms['bf16'][1]:.4f} ms, f32 (TF32 off) {ms['f32'][0]:.4f} "
+            f"{ms['f32'][1]:.4f} ms | {smi}")
+        if not finite or uv > 1e-5 or rel_upd > 1e-4 or rel_ref > 1e-4 or rel_16 > 5e-2:
+            raise AssertionError(f"{name} discriminator: not finite, or off its limits")
+        del x_dev, out32, out16
+    set_tf32(True)
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1149,6 +1241,7 @@ def main() -> int:
     phase_fallthrough(128)
     phase_fallthrough_int8()
     phase_wide_typed()
+    phase_discriminators(smi)
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from aglayout_tpu_torch.config import config_for
-from aglayout_tpu_torch.models import build_generator, init_weights
+from aglayout_tpu_torch.models import build_discriminators, build_generator, init_weights
 from aglayout_tpu_torch.models.convlstm import ConvLSTMCell
 from aglayout_tpu_torch.models.norms import SPADE
 from aglayout_tpu_torch.ops.conv8_int8 import (
@@ -177,6 +177,62 @@ def test_apply_t_kernel_matches_plain(cuda, dt):
     assert spade_apply_t.launches == before + 1 and got.dtype == DT[dt]
     assert _rel(got, spade_apply_t_plain(x, a_flat, b_flat, 16)) < TOL[dt]
     assert torch.equal(got, spade_apply8(x, a_tab, b_tab, 16))  # K4's function, K4's numerics
+
+
+# b, c, h, w, f: W 8, 64, 128, 200; f 5, 8, 16, 32 (at f = 32 the middle rows
+# past a thread's first twelve come in two more passes); and W = 5816 at
+# B = C = 1, past the 5,811 columns the shared-memory kernel it replaced took
+K4T_SHAPES = [(1, 8, 10, 8, 5), (8, 24, 64, 64, 8), (2, 128, 128, 128, 16), (3, 40, 64, 200, 32),
+              (5, 16, 48, 200, 16), (4, 128, 64, 128, 32), (1, 1, 32, 5816, 16)]
+
+
+def _apply_t_case(cuda, dt, b, c, h, w, f, seed):
+    """x (b, c, h, w) and random flat tables (b, h / f, 5, c, w) in `dt`."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(b, c, h, w, generator=g).to(cuda, DT[dt])
+    a_tab = (1 + 0.3 * torch.randn(b, h // f, 5, c, w, generator=g)).to(cuda, DT[dt])
+    b_tab = (0.3 * torch.randn(b, h // f, 5, c, w, generator=g)).to(cuda, DT[dt])
+    return x, a_tab, b_tab
+
+
+@pytest.mark.parametrize("b,c,h,w,f", K4T_SHAPES)
+def test_apply_t_kernel_bit_for_bit_in_bf16(cuda, b, c, h, w, f):
+    """K4' in bf16: x * A is exact in f32, so the kernel's fma gives the
+    plain version's product and sum, rounded once: the same bits."""
+    x, a_tab, b_tab = _apply_t_case(cuda, "bf16", b, c, h, w, f, seed=30)
+    before = spade_apply_t.launches
+    got = spade_apply_t(x, a_tab, b_tab, f)
+    assert spade_apply_t.launches == before + 1
+    assert torch.equal(got, spade_apply_t_plain(x, a_tab, b_tab, f))
+
+
+@pytest.mark.parametrize("b,c,h,w,f", K4T_SHAPES)
+def test_apply_t_kernel_matches_plain_in_f32(cuda, b, c, h, w, f):
+    """K4' in f32: one fma against the plain version's product and sum."""
+    x, a_tab, b_tab = _apply_t_case(cuda, "f32", b, c, h, w, f, seed=31)
+    got = spade_apply_t(x, a_tab, b_tab, f)
+    assert _rel(got, spade_apply_t_plain(x, a_tab, b_tab, f)) <= 1e-6
+
+
+def _misaligned(t):
+    """A contiguous copy of t whose storage starts one element past a 16-byte boundary."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    return out.copy_(t)
+
+
+def test_apply_t_raises_on_what_its_kernel_does_not_take(cuda):
+    """Misaligned x or tables (each is read as 16-byte vectors) and a W of
+    no whole vectors raise; nothing launches."""
+    x, a_tab, b_tab = _apply_t_case(cuda, "bf16", 2, 8, 16, 64, 8, seed=32)
+    before = spade_apply_t.launches
+    for args in ((_misaligned(x), a_tab, b_tab), (x, _misaligned(a_tab), b_tab),
+                 (x, a_tab, _misaligned(b_tab))):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            spade_apply_t(*args, 8)
+    with pytest.raises(ValueError, match="not supported"):  # W = 12: no whole bf16 vectors
+        spade_apply_t(x[..., :12].contiguous(), a_tab[..., :12].contiguous(),
+                      b_tab[..., :12].contiguous(), 8)
+    assert spade_apply_t.launches == before
 
 
 # b, cin, cout, k: the wide gate conv (batch cut; 6 is not a multiple of 8
@@ -873,3 +929,28 @@ def test_typed_v3_equals_k5_on_the_inner_grid(cuda, dt, n, c2, c4, s3):
     assert torch.equal(got, want)
     z2p[:, 12], z2p[:, :, 12] = 7.0, -3.0  # the kernel reads none of it
     assert torch.equal(v3(z2p, *rest, group=1), want)
+
+
+# ---- the discriminators: no kernel of the port (cuDNN's convs), on the card all the same
+
+
+@pytest.mark.parametrize("index,side", [(0, 128), (1, 64), (2, 64)])
+def test_discriminator_on_card_matches_cpu(cuda, index, side):
+    """The image (128^2), object and attribute (64^2 crops, its sixth block)
+    discriminators at d_conv_dim 8 in f32 on the card against the same
+    modules on the CPU: one call with update_stats, then one without."""
+    import copy
+
+    cfg = config_for(128, d_conv_dim=8, num_classes=23, attribute_dim=12)
+    ref = build_discriminators(cfg, "cpu", seed=4)[index]
+    net = copy.deepcopy(ref).to(cuda)
+    x = torch.randn(3, 3, side, side, generator=torch.Generator().manual_seed(index))
+    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)  # noqa: E731
+    for update_stats in (True, False):
+        with torch.no_grad():
+            want, got = as_tuple(ref(x, update_stats)), as_tuple(net(x.to(cuda), update_stats))
+        for g, w in zip(got, want, strict=True):
+            assert _rel(g.cpu(), w) <= 1e-4  # summation order, over 14 convs
+        for (key, a), b in zip(net.state_dict().items(), ref.state_dict().values()):
+            if key.endswith(("weight_u", "weight_v")):
+                assert (a.cpu() - b).abs().max().item() <= 1e-5, key
