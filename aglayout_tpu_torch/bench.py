@@ -1,7 +1,9 @@
-"""Serving benchmark of the port: generator inference throughput on one GPU.
+"""Benchmarks of the port on one GPU: generator inference throughput, or
+the GAN train step.
 
     python -m aglayout_tpu_torch.bench [--int8] [--dense] [--no_<kernel> ...]
                                        [--typed_c3 v4|v5|v6] [--no_compact_heads]
+    python -m aglayout_tpu_torch.bench --train_step [B] [--remat] [--double_g_forward] [--f32]
 
 The serving branch of the JAX package's root `bench.py`: eval-mode
 `Generator.generate` at 128^2, B=128, O=10, bf16 by default, on layouts
@@ -20,6 +22,19 @@ picks the typed-c3 kernel (its default is the environment's `AGL_TYPED_C3`
 where that names v5 or v6, as the JAX package reads it, else v4);
 `--no_head8` sends the c7 head through `spade_few_out_conv` on compact
 tables, and with `--no_compact_heads` on flat ones.
+
+`--train_step [B]` is the train branch of the JAX package's `bench.py`:
+`--iters` steps of `train/step.py` at batch B (8 when not given, the
+reference's; 128^2 unless `--image_size` says otherwise) on one seeded
+`synthetic_batch`, after one warm-up step, in bf16, or with `--f32` in f32
+with TF32 off. Its JSON line holds steps/sec, images/sec and ms/step from
+CUDA events around the steps, the mean ms of each part of a step (prep:
+crops, the attribute D's real-crop forward, estimation and swap;
+g_forward; d_phase: the Ds' forwards, backward and Adam steps; g_phase:
+the G losses, backward and Adam step) from events the step marks, the D
+phase's share of the step, the peak device memory, and the card's name
+and power limit. No kernel of the port runs in a train step (every model
+is in training mode).
 """
 
 from __future__ import annotations
@@ -62,6 +77,30 @@ def layouts(cfg: Config, b: int, o: int, seed: int, device):
     return [torch.from_numpy(a).to(device) for a in (objs, boxes, valid, z, attr)]
 
 
+# The config fields of a small train step: the CPU tests' widths, at which
+# the card's f32 step is held against the CPU's (`train/compare.py`).
+TRAIN_SMALL = dict(num_classes=23, attribute_dim=12, conv_dim=8, z_dim=8, embedding_dim=8,
+                   clstm_layers=2, resi_num=2, d_conv_dim=8, batch_size=3, max_objects=3)
+
+
+def train_inputs(cfg: Config, b: int, seed: int = 0):
+    """(batch, matrix, pos_weight) as numpy for a train step of `cfg` at
+    batch b: a seeded `synthetic_batch`, a co-occurrence matrix from the
+    same draws, and the vocabulary's positive-class weights (seeded ones for
+    a model narrower than its 106 attributes)."""
+    from aglayout_tpu_torch.data.synthetic import synthetic_batch, synthetic_cooccurrence
+    from aglayout_tpu_torch.data.vocab import attribute_pos_weight
+
+    rng = np.random.RandomState(seed)
+    batch = synthetic_batch(rng, b, cfg.max_objects, cfg.image_size, cfg.num_classes,
+                            cfg.attribute_dim)
+    matrix = synthetic_cooccurrence(rng, cfg.num_classes, cfg.attribute_dim)
+    pos_weight = attribute_pos_weight()
+    if cfg.attribute_dim != len(pos_weight):
+        pos_weight = rng.uniform(1.0, 30.0, cfg.attribute_dim).astype(np.float32)
+    return batch, matrix, pos_weight
+
+
 def card_name_and_power_limit() -> str:
     """`nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`, first card."""
     out = subprocess.run(
@@ -90,6 +129,12 @@ def parser() -> argparse.ArgumentParser:
                    help="the typed-c3 kernel (default: AGL_TYPED_C3 if it is v5 or v6, else v4)")
     p.add_argument("--no_compact_heads", action="store_true",
                    help="with --no_head8: the c7 head reads flat tables, not compact ones")
+    p.add_argument("--train_step", type=int, nargs="?", const=8, default=None, metavar="B",
+                   help="time the GAN train step at batch B (default 8) instead of generate")
+    p.add_argument("--remat", action="store_true",
+                   help="with --train_step: recompute the G forward in its backward")
+    p.add_argument("--double_g_forward", action="store_true",
+                   help="with --train_step: a second G forward in the G phase (the reference's)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cpu: plain paths on the host, for tests; no device number comes of it")
     return p
@@ -99,18 +144,26 @@ def config_from_args(args, **overrides) -> Config:
     """The Config of a run; `overrides` narrow the model (tests)."""
     switches = {switch: not (args.dense or getattr(args, f"no_{name}"))
                 for name, switch in KERNEL_FLAGS.items()}
-    return config_for(args.image_size, batch_size=args.batch_size, max_objects=args.max_objects,
+    return config_for(args.image_size, batch_size=batch_size(args), max_objects=args.max_objects,
                       bf16=not args.f32, int8_serving=args.int8, typed_c3=args.typed_c3,
+                      remat=args.remat, double_g_forward=args.double_g_forward,
                       use_compact_heads=not args.no_compact_heads, **switches, **overrides)
 
 
+def batch_size(args) -> int:
+    return args.train_step or args.batch_size
+
+
 def run(args, **overrides) -> dict:
-    """Time `args.iters` batches of generate; returns the JSON line's dict."""
+    """Time `args.iters` batches of generate, or train steps with
+    `--train_step`; returns the JSON line's dict."""
     if args.device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("bench: no CUDA device; this benchmark measures the card "
                            "(--device cpu runs the plain paths for a functional check)")
+    if args.train_step is not None:
+        return run_train(args, **overrides)
     cfg = config_from_args(args, **overrides)
-    b, o, iters = args.batch_size, args.max_objects, args.iters
+    b, o, iters = batch_size(args), args.max_objects, args.iters
     model = build_generator(cfg, args.device, seed=0)
     objs, boxes, valid, _, attr = layouts(cfg, b, o, seed=0, device=args.device)
     zs = torch.from_numpy(
@@ -151,6 +204,80 @@ def run(args, **overrides) -> dict:
                    "int8_serving": cfg.int8_serving, "typed_c3": cfg.typed_c3,
                    "compact_heads": cfg.use_compact_heads,
                    "kernels_off": sorted(s for s in KERNEL_FLAGS.values() if not getattr(cfg, s))},
+    }
+
+
+PHASES = ("prep", "g_forward", "d_phase", "g_phase")
+
+
+def run_train(args, **overrides) -> dict:
+    """Time `args.iters` train steps; returns the JSON line's dict. Under
+    `--f32` the step runs in f32 with TF32 off in cuBLAS and cuDNN, as the
+    JAX package's f32 step computes; the flags come back after."""
+    cfg = config_from_args(args, **overrides)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    if not cfg.bf16:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        return _time_train(args, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _time_train(args, cfg) -> dict:
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.train.state import create_train_state
+    from aglayout_tpu_torch.train.step import make_train_step
+
+    b, o, iters, dev = batch_size(args), cfg.max_objects, args.iters, args.device
+    batch, matrix, pos_weight = train_inputs(cfg, b)
+    batch = batch_to_torch(batch, dev)
+    state = create_train_state(cfg, dev, seed=0)
+    step = make_train_step(cfg, state.models, matrix, pos_weight)
+    cuda = dev == "cuda"
+
+    def stamp():
+        if cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def elapsed_ms(a, b):
+        return a.elapsed_time(b) if cuda else (b - a) * 1e3
+
+    state, _ = step(state, batch)  # warm-up: cuDNN's algorithm choice, the allocator
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    marks, total = [], torch.zeros((), device=dev)
+    for _ in range(iters):
+        times = {"start": stamp()}
+        state, metrics = step(state, batch, mark=lambda name, t=times: t.__setitem__(name, stamp()))
+        total += metrics["G/loss"]
+        marks.append(times)
+    if cuda:
+        torch.cuda.synchronize()
+    checksum = float(total)
+    if not np.isfinite(checksum):
+        raise FloatingPointError(f"bench: the G losses' sum is {checksum}")
+    ms = elapsed_ms(marks[0]["start"], marks[-1]["g_phase"]) / iters
+    parts = {}
+    for name, prev in zip(PHASES, ("start",) + PHASES):
+        parts[name] = round(sum(elapsed_ms(t[prev], t[name]) for t in marks) / iters, 3)
+    return {
+        "metric": f"{cfg.image_size}x{cfg.image_size} GAN train steps/sec/chip (batch {b})",
+        "value": round(1e3 / ms, 3),
+        "unit": "steps/sec",
+        "images_per_sec": round(b * 1e3 / ms, 1),
+        "ms_per_step": round(ms, 3),
+        "phase_ms": parts,
+        "d_phase_share": round(parts["d_phase"] / ms, 3),
+        "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3) if cuda else None,
+        "card": card_name_and_power_limit() if cuda else "cpu (host clock; not a device number)",
+        "config": {"batch_size": b, "max_objects": o, "bf16": cfg.bf16, "remat": cfg.remat,
+                   "double_g_forward": cfg.double_g_forward, "iters": iters,
+                   "tf32": cuda and torch.backends.cudnn.allow_tf32},
     }
 
 

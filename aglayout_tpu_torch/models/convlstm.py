@@ -62,14 +62,14 @@ class ConvLSTMCell(nn.Module):
 
     def int8_route(self, inp) -> str:
         """The int8 gate conv of an engaged cell on its input inp = cat(x,
-        h) (B, Cin, H, W): "kernel" where `conv_small_int8`'s kernel takes
-        the shapes and dtype (`use_int8_kernel` on), else "plain"
-        (`conv_small_int8_plain`). A pure function of shapes: the caller
-        takes the kernel for CUDA tensors only."""
+        h) (B, Cin, H, W): "kernel" in eval mode where `conv_small_int8`'s
+        kernel takes the shapes and dtype (`use_int8_kernel` on), else
+        "plain" (`conv_small_int8_plain`). A pure function of shapes: the
+        caller takes the kernel for CUDA tensors only."""
         conv = self.conv
         k = conv.kernel_size[0]
         wq_shape = (conv.out_channels, k, k, conv.in_channels)
-        if (self.use_int8_kernel and inp.dtype in (torch.bfloat16, torch.float32)
+        if (not self.training and self.use_int8_kernel and inp.dtype in (torch.bfloat16, torch.float32)
                 and conv_small_int8_supports(tuple(inp.shape), wq_shape, k)):
             return "kernel"
         return "plain"
@@ -78,12 +78,12 @@ class ConvLSTMCell(nn.Module):
         """(wq, sw, wp) of the gate conv under the int8 route, else None. wp
         is wq packed for the kernel (`pack_conv_small_int8_weights`) where
         the kernel can run: CUDA weights of a shape it takes, with
-        `use_int8_kernel` on; else None. They do not change over the object
+        `use_int8_kernel` on, in eval mode; else None. They do not change over the object
         slots: `LayoutFuser` takes them once a forward."""
         if not self.int8_engaged:
             return None
         wq, sw = quantize_conv_weights(self.conv.weight)
-        packs = (self.use_int8_kernel and wq.is_cuda
+        packs = (not self.training and self.use_int8_kernel and wq.is_cuda
                  and conv_small_int8_takes_weights(tuple(wq.shape), self.conv.kernel_size[0]))
         return wq, sw, pack_conv_small_int8_weights(wq) if packs else None
 

@@ -1,4 +1,4 @@
-"""The layout-to-image generator, eval path at 64^2 and 128^2.
+"""The layout-to-image generator at 64^2 and 128^2, train and eval.
 
 Port of `aglayout_tpu/models/generator.py`. Module and attribute names
 follow the reference's `state_dict` keys (`layout_encoder.clstm.cell_list.0.conv`,
@@ -7,19 +7,23 @@ so a reference netG checkpoint loads with `load_state_dict`, and
 `aglayout_tpu/utils/torch_import.py::import_generator` maps this model's
 `state_dict` into the JAX trees.
 
-Ported so far: eval-mode `Generator.generate` at 64^2 and 128^2, from
-boxes or from explicit masks. At 128^2 the layout encoder takes the typed
-c2/c3 algebra and the folded c4, and the decoder the 2x upsample tail, as
-JAX's eval path does. The CropEncoder holds its parameters, so the
-`state_dict` is the reference's whole netG; its forward and train mode
-come later.
+`Generator.forward` is the train-mode forward of JAX's
+`Generator.__call__` (real-crop VAE encoding, three layouts and images,
+the fake crops' re-encodings; JAX's batch layout in and out), and
+`Generator.generate` the layout -> image path, in eval mode (at 128^2 the
+layout encoder's typed c2/c3 algebra and folded c4, as JAX's eval path)
+or with `train=True` in training mode. In training mode every BN takes
+the batch's statistics (the object-level ones over the valid rows), the
+layout encoder's first stage takes its closed-form moments, and SPADE its
+full-resolution convs.
 
 Kernel routes fall through by shape, as JAX's do: at each site a small
 pure function (`LayoutEncoder.trunk_route`, `typed_route`,
 `Decoder.head_route`, `head8_route`, `apply_route`) asks each kernel's
 predicate in turn and names the first that takes the shapes, or the plain
-composition. A route is taken only for CUDA tensors, and only where its
-switch is on.
+composition. A route is taken only for CUDA tensors, only where its
+switch is on, and only in eval mode: the kernels compute eval affines and
+have no backward, and JAX takes each under `use_running_average` only.
 """
 
 from __future__ import annotations
@@ -39,8 +43,11 @@ from aglayout_tpu_torch.models.layers import (
     Embedding,
     Linear,
     ResidualBlock,
+    adaptive_avg_pool,
 )
 from aglayout_tpu_torch.models.norms import SPADE, ConditionalBatchNorm, MaskedBatchNorm
+from aglayout_tpu_torch.ops.bilinear import crop_bbox_dense
+from aglayout_tpu_torch.ops.rasterize import rasterize_boxes
 from aglayout_tpu_torch.ops.resblocks import residual_trunk, residual_trunk_supports
 from aglayout_tpu_torch.ops.spade_conv import (
     spade_apply8,
@@ -161,8 +168,9 @@ def typed_axis_coverage(size: int):
 
 
 class CropEncoder(nn.Module):
-    """VAE encoder over object crops (reference generator_obj_att.py:367-422).
-    Parameters only: its forward belongs to the train path, not ported yet."""
+    """VAE encoder over object crops (reference generator_obj_att.py:367-422):
+    five conv stages 64..1024 channels with class-conditional BN, a global
+    average pool and two heads."""
 
     def __init__(self, num_classes: int, z_dim: int, conv_dim: int = 64,
                  dtype: torch.dtype | None = None):
@@ -177,8 +185,19 @@ class CropEncoder(nn.Module):
         self.fc_mu = Linear(16 * d, z_dim, dtype=dtype)
         self.fc_logvar = Linear(16 * d, z_dim, dtype=dtype)
 
-    def forward(self, *args):
-        raise NotImplementedError("CropEncoder.forward comes with the train path")
+    def forward(self, crops, objs, mask=None, eps=None):
+        """crops (N, 3, s, s), objs (N,), mask (N,) the valid rows of the
+        BNs' batch statistics -> (z, mu, logvar), each (N, z_dim), with z =
+        eps * exp(logvar / 2) + mu for the draw eps (N, z_dim) the caller
+        makes (None where only mu is wanted: z is None then)."""
+        h = crops
+        for i in range(5):
+            conv = getattr(self, "conv5" if i == 4 else f"c{i + 1}")
+            h = torch.relu(getattr(self, f"bn{i + 1}")(conv(h), objs, mask))
+        h = h.mean(dim=(2, 3))
+        mu, logvar = self.fc_mu(h), self.fc_logvar(h)
+        z = None if eps is None else eps.to(mu.dtype) * torch.exp(0.5 * logvar) + mu
+        return z, mu, logvar
 
 
 class AttributeEncoder(nn.Module):
@@ -196,11 +215,13 @@ class AttributeEncoder(nn.Module):
         self.bn1 = MaskedBatchNorm(cd, dtype=dtype)
         self.c2 = Linear(cd, cd, dtype=dtype)
 
-    def forward(self, objs, attribute):
+    def forward(self, objs, attribute, mask=None):
+        """objs (N,), attribute (N, A), mask (N,) the valid rows of the BNs'
+        batch statistics -> (N, cd)."""
         emb = self.embedding(objs)
         a = torch.cat([emb, attribute.to(emb.dtype)], dim=-1)
-        a = torch.relu(self.bn0(self.c0(a)))
-        a = torch.relu(self.bn1(self.c1(a)))
+        a = torch.relu(self.bn0(self.c0(a), mask))
+        a = torch.relu(self.bn1(self.c1(a), mask))
         return self.c2(a)
 
 
@@ -241,16 +262,20 @@ class LayoutEncoder(nn.Module):
             ResidualBlock(clstm_dims[-1], dtype=dtype) for _ in range(resi_num)
         )
 
-    def _fused_stage1(self, vec, boxes, objs):
-        """Exact eval-mode broadcast + c0 + bn1 + relu + c2 on box masks
-        (JAX `_fused_stage1`, eval branch).
+    def _fused_stage1(self, vec, boxes, objs, valid=None):
+        """Exact broadcast + c0 + bn1 + relu + c2 on box masks (JAX
+        `_fused_stage1`).
 
         The c0 input plane of an object is its code inside its box and 0
         outside, so after c0, bn1 and relu it takes two constants, p inside
         and q outside (padding ring included); c2 then reduces to sums of
-        its taps weighted by separable binary box windows.
+        its taps weighted by separable binary box windows. In training mode
+        bn1's batch moments are closed forms too: an object's c0 output is
+        W v on its box's area and 0 elsewhere, so the masked moments are
+        area-weighted sums over the valid objects, each counting (S+2)^2
+        pixels (c0's padding ring).
         vec: (B, O, C0); boxes: (B, O, 4) normalized (x0, y0, x1, y1);
-        objs: (B, O). Returns the c2 output (B*O, 2d, S2, S2).
+        objs, valid: (B, O). Returns the c2 output (B*O, 2d, S2, S2).
         """
         b, o, _ = vec.shape
         size = self.image_size
@@ -260,7 +285,17 @@ class LayoutEncoder(nn.Module):
 
         w0 = self.c0.weight[:, :, 0, 0].to(dt)  # (d, C0)
         wv = torch.einsum("bok,dk->bod", vec.to(dt), w0)
-        a, bb = self.bn1.eval_affine(objs.reshape(-1))
+        if self.training:
+            wvf = wv.to(torch.promote_types(wv.dtype, torch.float32)).reshape(b * o, -1)
+            r0, c0, r1, c1 = (torch.round(boxes[..., i] * size).clamp(0, size) for i in (1, 0, 3, 2))
+            area = ((r1 - r0).clamp(min=0.0) * (c1 - c0).clamp(min=0.0)).reshape(b * o)
+            w = valid.reshape(b * o).float()
+            cnt = w.sum() * float(in_size * in_size)
+            mean = ((w * area)[:, None] * wvf).sum(0) / cnt
+            ex2 = ((w * area)[:, None] * wvf * wvf).sum(0) / cnt
+            a, bb = self.bn1.train_affine(objs.reshape(-1), mean, ex2 - mean * mean, cnt)
+        else:
+            a, bb = self.bn1.eval_affine(objs.reshape(-1))
         a = a.view(b, o, -1).to(dt)
         bb = bb.view(b, o, -1).to(dt)
         p = torch.relu(a * wv + bb)  # inside the box
@@ -299,9 +334,9 @@ class LayoutEncoder(nn.Module):
         return w1, w2, ab1, ab2
 
     def trunk_route(self, h) -> str:
-        """"k1" where the trunk kernel takes h (in the compute dtype), else
-        "loop", the blocks one by one."""
-        if self.use_trunk_kernel and len(self.residual):
+        """"k1" in eval mode where the trunk kernel takes h (in the compute
+        dtype), else "loop", the blocks one by one."""
+        if not self.training and self.use_trunk_kernel and len(self.residual):
             w1 = self.residual[0].main[0].weight.expand(len(self.residual), -1, -1, -1, -1)
             if residual_trunk_supports(h, w1):
                 return "k1"
@@ -318,9 +353,10 @@ class LayoutEncoder(nn.Module):
 
     def typed_route(self, z2, s3: int) -> str:
         """The typed c3 kernel `Config.typed_c3` names ("v4", "v5", "v6")
-        where it takes the (n, 12, 12, 2d) grid z2, else "plain"
-        (`typed_c3_expand_plain`)."""
-        if self.use_typed_kernel and SUPPORTS[self.typed_c3](z2, self.c3.weight, s3):
+        in eval mode where it takes the (n, 12, 12, 2d) grid z2, else
+        "plain" (`typed_c3_expand_plain`)."""
+        if (not self.training and self.use_typed_kernel
+                and SUPPORTS[self.typed_c3](z2, self.c3.weight, s3)):
             return self.typed_c3
         return "plain"
 
@@ -399,36 +435,40 @@ class LayoutEncoder(nn.Module):
         a4, b4 = self.bn4.eval_affine(objs_f)
         return h * a4[:, :, None, None].to(dt) + b4[:, :, None, None].to(dt)
 
-    def _masks_stage(self, vec, masks, objs_f):
-        """Eval [broadcast -> c0 -> bn1 -> relu -> c2] on explicit masks (JAX
+    def _masks_stage(self, vec, masks, objs_f, mask_f):
+        """[broadcast -> c0 -> bn1 -> relu -> c2] on explicit masks (JAX
         `LayoutEncoder.__call__`'s masks branch): each object's code times its
-        mask plane. masks: (B, O, H, W, 1), as JAX takes them. Returns the c2
-        output (B*O, 2d, S2, S2)."""
+        mask plane. masks: (B, O, H, W, 1), as JAX takes them; mask_f (B*O,)
+        the valid rows. Returns the c2 output (B*O, 2d, S2, S2)."""
         b, o, c = vec.shape
         m = masks[..., 0].to(vec.dtype)  # (B, O, H, W)
         h = (vec[:, :, :, None, None] * m[:, :, None]).reshape(b * o, c, *m.shape[2:])
-        h = torch.relu(self.bn1(self.c0(h), objs_f))
+        h = torch.relu(self.bn1(self.c0(h), objs_f, mask_f))
         return self.c2(h)
 
     def forward(self, objs_att, valid, z, objs, boxes, masks=None):
         # objs_att: (B, O, cd); valid, objs: (B, O); z: (B, O, z_dim); boxes:
         # (B, O, 4); masks: (B, O, H, W, 1) or None (the box fast paths)
         b, o = objs_att.shape[:2]
-        objs_f = objs.reshape(-1)
+        objs_f, mask_f = objs.reshape(-1), valid.reshape(-1)
         vec = torch.cat([objs_att, z.to(objs_att.dtype)], dim=-1)
-        if masks is None and self.image_size == 128:
+        if masks is None and self.image_size == 128 and not self.training:
             # the typed algebra (JAX's eval path at 128^2; at 64^2 the dense
             # c3 is cheaper there)
             h = self._typed_c2c3_eval(vec, boxes, objs)
         else:
-            h = (self._fused_stage1(vec, boxes, objs) if masks is None
-                 else self._masks_stage(vec, masks, objs_f))
-            h = torch.relu(self.bn2(h, objs_f))
-            h = torch.relu(self.bn3(self.c3(h), objs_f))
-        if self.image_size == 128:
+            h = (self._fused_stage1(vec, boxes, objs, valid) if masks is None
+                 else self._masks_stage(vec, masks, objs_f, mask_f))
+            h = torch.relu(self.bn2(h, objs_f, mask_f))
+            h = torch.relu(self.bn3(self.c3(h), objs_f, mask_f))
+        if self.image_size == 128 and not self.training:
             h = self._c4_fold(h, objs_f)
         else:
-            h = self.bn4(self.c4(h), objs_f)  # no relu (reference :504-509)
+            # bn4's batch statistics are over the pre-pool map; no relu
+            # (reference :504-509)
+            h = self.bn4(self.c4(h), objs_f, mask_f)
+            if self.image_size == 128:
+                h = adaptive_avg_pool(h, 8)
         h = self.clstm(h.view(b, o, *h.shape[1:]), valid)
         return self._trunk(h)
 
@@ -491,9 +531,9 @@ class Decoder(nn.Module):
         return f if f >= 5 and h.shape[-2:] == (f * seg.shape[-2], f * seg.shape[-1]) else 0
 
     def head_route(self, h, seg) -> str:
-        """The c4 head: "k2" on flat tables where `spade_few_out_conv` takes
-        the shapes, else "dense"."""
-        f = self._factor(h, seg)
+        """The c4 head: "k2" on flat tables in eval mode where
+        `spade_few_out_conv` takes the shapes, else "dense"."""
+        f = self._factor(h, seg) if not self.training else 0
         if f and self.use_head_kernel and spade_few_out_conv_supports(h, self.c4.weight, f):
             return "k2"
         return "dense"
@@ -504,9 +544,10 @@ class Decoder(nn.Module):
         `pallas_grouped_heads`) where K3 takes the shapes; else "k2" with
         `use_head_kernel`, on compact tables with `use_compact_heads` (JAX
         `pallas_compact_heads`), on flat ones without, where K2 takes them;
-        else "dense". (JAX gates K3 and compact tables by its TPU tiling, C %
-        128 == 0; the port by what its kernels take.)"""
-        f = self._factor(h, seg)
+        else "dense", and "dense" in training mode. (JAX gates K3 and
+        compact tables by its TPU tiling, C % 128 == 0; the port by what its
+        kernels take.)"""
+        f = self._factor(h, seg) if not self.training else 0
         if f and self.use_head8_kernel and spade_few_out_conv8_supports(h, self.c7.weight, f):
             return "k3"
         if f and self.use_head_kernel and spade_few_out_conv_supports(
@@ -515,9 +556,9 @@ class Decoder(nn.Module):
         return "dense"
 
     def apply_route(self, h, seg) -> str:
-        """relu(SPADE-4): "k4" on compact tables where `spade_apply8` takes the
-        shapes, else "dense"."""
-        f = self._factor(h, seg)
+        """relu(SPADE-4): "k4" on compact tables in eval mode where
+        `spade_apply8` takes the shapes, else "dense"."""
+        f = self._factor(h, seg) if not self.training else 0
         return "k4" if f and self.use_apply_kernel and spade_apply8_supports(h, f) else "dense"
 
     @staticmethod
@@ -575,7 +616,12 @@ class Decoder(nn.Module):
 
 
 class Generator(nn.Module):
-    """The generator (reference models/generator_obj_att.py:603-647)."""
+    """The generator (reference models/generator_obj_att.py:603-647).
+
+    fused_layout: the masks are rasterizations of the boxes (the VG
+    pipeline's and `generate`'s are), so the train forward's layout
+    encoder takes its closed form on the boxes and ignores the masks (JAX
+    `Generator.fused_layout`); False for hand-made masks."""
 
     def __init__(self, num_classes: int, attribute_dim: int = 106, embedding_dim: int = 64,
                  z_dim: int = 64, image_size: int = 64, object_size: int = 32,
@@ -584,10 +630,13 @@ class Generator(nn.Module):
                  use_typed_kernel: bool = True, use_apply_kernel: bool = True,
                  use_head8_kernel: bool = True, int8_serving: bool = False,
                  use_int8_kernel: bool = True, typed_c3: str = "v4",
-                 use_compact_heads: bool = True, dtype: torch.dtype | None = None):
+                 use_compact_heads: bool = True, fused_layout: bool = True,
+                 dtype: torch.dtype | None = None):
         super().__init__()
         cd = conv_dim
+        self.image_size = image_size
         self.object_size = object_size
+        self.fused_layout = fused_layout
         self.crop_encoder = CropEncoder(num_classes, z_dim, conv_dim=cd, dtype=dtype)
         self.layout_encoder = LayoutEncoder(
             num_classes, image_size=image_size, conv_dim=cd, resi_num=resi_num,
@@ -605,9 +654,70 @@ class Generator(nn.Module):
             num_classes, attribute_dim, embedding_dim, conv_dim=cd, dtype=dtype
         )
 
+    def forward(self, imgs, objs, boxes, masks, valid, z_rand, attribute, masks_shift,
+                boxes_shift, attribute_est, eps):
+        """The train-mode forward (JAX `Generator.__call__`), in JAX's batch
+        layout: imgs (B, H, W, 3); objs, valid (B, O); boxes, boxes_shift
+        (B, O, 4); masks, masks_shift (B, O, H, W, 1), unused with
+        `fused_layout`; z_rand (B, O, z_dim); attribute, attribute_est (B,
+        O, A); eps (B*O, z_dim), the reparametrisation draw of the real
+        crops' encoding (the two re-encodings keep mu).
+
+        Returns JAX's dict: crops_input, crops_input_rec, crops_rand,
+        crops_shift (B, O, s, s, 3), f32; img_rec, img_rand, img_shift (B,
+        H, W, 3); mu, logvar, z_rand_rec, z_rand_shift (B*O, z_dim). The
+        NHWC tensors are views of NCHW ones.
+        """
+        b, o = objs.shape
+        objs_f, mask_f = objs.reshape(-1), valid.reshape(-1)
+        s = self.object_size
+
+        def flat(x):
+            return x.reshape((b * o,) + x.shape[2:])
+
+        def nhwc(x):
+            return x.permute(0, 1, 3, 4, 2) if x.ndim == 5 else x.permute(0, 2, 3, 1)
+
+        crops_input = crop_bbox_dense(imgs.permute(0, 3, 1, 2), boxes, s)
+        z_rec, mu, logvar = self.crop_encoder(flat(crops_input), objs_f, mask_f, eps)
+
+        objs_att = self.attribute_encoder(objs_f, flat(attribute), mask_f).view(b, o, -1)
+        objs_att_est = self.attribute_encoder(objs_f, flat(attribute_est), mask_f).view(b, o, -1)
+        m, ms = (None, None) if self.fused_layout else (masks, masks_shift)
+        h_rec = self.layout_encoder(objs_att_est, valid, z_rec.view(b, o, -1), objs, boxes, m)
+        h_rand = self.layout_encoder(objs_att, valid, z_rand, objs, boxes, m)
+        h_shift = self.layout_encoder(objs_att, valid, z_rand, objs, boxes_shift, ms)
+
+        g_rec, g_rand, g_shift = (self.global_encoder(h) for h in (h_rec, h_rand, h_shift))
+        img_rec = self.decoder(h_rec, g_rec)
+        img_rand = self.decoder(h_rand, g_rand)
+        img_shift = self.decoder(h_shift, g_shift)
+
+        crops_rand = crop_bbox_dense(img_rand, boxes, s)
+        _, z_rand_rec, _ = self.crop_encoder(flat(crops_rand), objs_f, mask_f)
+        crops_input_rec = crop_bbox_dense(img_rec, boxes, s)
+        crops_shift = crop_bbox_dense(img_shift, boxes_shift, s)
+        _, z_rand_shift, _ = self.crop_encoder(flat(crops_shift), objs_f, mask_f)
+        return {
+            "crops_input": nhwc(crops_input),
+            "crops_input_rec": nhwc(crops_input_rec),
+            "crops_rand": nhwc(crops_rand),
+            "crops_shift": nhwc(crops_shift),
+            "img_rec": nhwc(img_rec),
+            "img_rand": nhwc(img_rand),
+            "img_shift": nhwc(img_shift),
+            "mu": mu,
+            "logvar": logvar,
+            "z_rand_rec": z_rand_rec,
+            "z_rand_shift": z_rand_shift,
+        }
+
     @torch.no_grad()
-    def generate(self, objs, boxes, valid, z, attribute, masks=None):
-        """Layout -> image, eval mode (JAX `Generator.generate` with train=False).
+    def generate(self, objs, boxes, valid, z, attribute, masks=None, train: bool = False):
+        """Layout -> image (JAX `Generator.generate`), run in eval mode, or
+        with `train` in training mode: batch statistics (the running ones
+        advance) and masks rasterized from the boxes where none are given.
+        The module's own mode is restored afterwards.
 
         objs: (B, O) int; boxes: (B, O, 4) normalized; valid: (B, O);
         z: (B, O, z_dim); attribute: (B, O, attribute_dim); masks: None (the
@@ -615,13 +725,19 @@ class Generator(nn.Module):
         which the layout encoder then broadcasts the object codes over.
         Returns the raw decoder output (B, H, W, 3).
         """
-        if self.training:
-            raise NotImplementedError("generate runs in eval mode; call .eval() first")
-        b, o = objs.shape
-        att = self.attribute_encoder(objs.reshape(-1), attribute.reshape(b * o, -1))
-        h = self.layout_encoder(att.view(b, o, -1), valid, z, objs, boxes, masks)
-        g = self.global_encoder(h)
-        return self.decoder(h, g).permute(0, 2, 3, 1)
+        was_training = self.training
+        self.train(train)
+        try:
+            b, o = objs.shape
+            if masks is None and train:
+                masks = rasterize_boxes(boxes, self.image_size, self.image_size)[..., None]
+            att = self.attribute_encoder(objs.reshape(-1), attribute.reshape(b * o, -1),
+                                         valid.reshape(-1))
+            h = self.layout_encoder(att.view(b, o, -1), valid, z, objs, boxes, masks)
+            g = self.global_encoder(h)
+            return self.decoder(h, g).permute(0, 2, 3, 1)
+        finally:
+            self.train(was_training)
 
 
 @torch.no_grad()

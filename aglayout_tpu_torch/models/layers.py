@@ -1,4 +1,5 @@
-"""Torch layers that compute in a chosen dtype, and the residual block.
+"""Torch layers that compute in a chosen dtype, the residual block and the
+average pools.
 
 Port of `aglayout_tpu/models/layers.py`. Each layer keeps torch's own
 weight layout and default initialisation, so the reference's `state_dict`
@@ -73,7 +74,8 @@ class Embedding(nn.Embedding):
 
 class ResidualBlock(nn.Module):
     """conv3x3-BN-ReLU-conv3x3-BN + identity skip
-    (reference models/generator_obj_att.py:47-60; keys main.{0,1,3,4})."""
+    (reference models/generator_obj_att.py:47-60; keys main.{0,1,3,4}); in
+    training mode its BNs take the batch's statistics over B x 8 x 8."""
 
     def __init__(self, features: int, dtype: torch.dtype | None = None):
         super().__init__()
@@ -87,3 +89,13 @@ class ResidualBlock(nn.Module):
 
     def forward(self, x):
         return x + self.main(x)
+
+
+def adaptive_avg_pool(x, out_hw: int):
+    """AdaptiveAvgPool2d to out_hw x out_hw for an integer ratio (exact), NCHW."""
+    h, w = x.shape[-2:]
+    if h == out_hw and w == out_hw:
+        return x
+    if h % out_hw or w % out_hw:
+        raise ValueError(f"adaptive_avg_pool: {(h, w)} is not a multiple of {out_hw}")
+    return F.avg_pool2d(x, (h // out_hw, w // out_hw))

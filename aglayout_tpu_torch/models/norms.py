@@ -1,12 +1,16 @@
-"""Eval-mode normalization layers: BN, class-conditional BN and SPADE.
+"""Normalization layers: BN, class-conditional BN and SPADE.
 
 Port of `aglayout_tpu/models/norms.py`, NCHW. The buffers and parameters
 carry torch's own `BatchNorm` names (`weight`, `bias`, `running_mean`,
 `running_var`, `num_batches_tracked`), so the reference's `state_dict`
-loads as it is. Every layer normalises in f32 with the running statistics
-and then casts to the compute dtype, as the JAX layers do. Train-mode
-masked batch statistics are not ported yet: a layer in training mode
-raises.
+loads as it is. Every layer normalises in f32 (f64 for f64 input) and then
+casts to the compute dtype, as the JAX layers do: in eval mode with the running
+statistics, in training mode with the batch's. Batch moments are taken
+over every axis but the channels, and over the valid rows only where a
+row mask is given (the dense (B, O_max) object layout pads its rows);
+var = E[x^2] - E[x]^2, biased, normalises, and the running statistics
+take the unbiased var at momentum 0.1, as torch's BatchNorm and JAX's
+`MaskedBatchNorm` do.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ class MaskedBatchNorm(nn.Module):
         self.features = features
         self.affine = affine
         self.eps = eps
+        self.momentum = 0.1
         self.compute_dtype = dtype
         if affine:
             self.weight = nn.Parameter(torch.ones(features))
@@ -38,19 +43,57 @@ class MaskedBatchNorm(nn.Module):
     def eval_affine(self):
         """(a, b) such that eval-mode BN(x) == a * x + b (per channel), f32."""
         a = torch.rsqrt(self.running_var + self.eps)
-        b = -self.running_mean * a
+        return self._affine(a, -self.running_mean * a)
+
+    @torch.no_grad()
+    def _track(self, mean, var, cnt):
+        """Running statistics after one batch with moments (mean, var) over
+        cnt values a channel: momentum 0.1, the unbiased var."""
+        denom = max(cnt - 1.0, 1.0) if isinstance(cnt, float) else torch.clamp(cnt - 1.0, min=1.0)
+        unbiased = var * cnt / denom
+        self.running_mean.copy_((1 - self.momentum) * self.running_mean + self.momentum * mean)
+        self.running_var.copy_((1 - self.momentum) * self.running_var + self.momentum * unbiased)
+        self.num_batches_tracked.add_(1)
+
+    def _affine(self, a, b):
         if self.affine:
             a = a * self.weight
             b = b * self.weight + self.bias
         return a, b
 
-    def forward(self, x):
-        if self.training:
-            raise NotImplementedError("train-mode batch statistics are not ported yet")
+    def train_affine(self, mean, var, cnt):
+        """(a, b), f32, with train-mode BN(x) == a * x + b for batch moments
+        computed outside the layer (the layout encoder's closed form); the
+        running statistics advance as in `forward`."""
+        self._track(mean, var, cnt)
+        a = torch.rsqrt(var + self.eps)
+        return self._affine(a, -mean * a)
+
+    def _batch_moments(self, xf, mask):
+        """(mean, biased var, count a channel) of f32 x over every axis but
+        1, over the rows where `mask` (N,) is non-zero when given."""
+        dims = (0,) + tuple(range(2, xf.ndim))
+        if mask is None:
+            cnt = float(xf.numel() // xf.shape[1])
+            mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)
+        else:
+            m = mask.float().view((-1,) + (1,) * (xf.ndim - 1))
+            cnt = m.sum() * float(xf[0, 0].numel())
+            mean = (xf * m).sum(dims) / cnt
+            mean2 = (xf * xf * m).sum(dims) / cnt
+        return mean, mean2 - mean * mean, cnt
+
+    def forward(self, x, mask=None):
+        """BN of x (N, C) or (N, C, H, W); `mask` (N,) selects the rows
+        whose batch statistics count (training mode only)."""
         shape = (1, self.features) + (1,) * (x.ndim - 2)
-        y = (x.float() - self.running_mean.view(shape)) * torch.rsqrt(
-            self.running_var.view(shape) + self.eps
-        )
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # f32, or f64 for f64 input
+        if self.training:
+            mean, var, cnt = self._batch_moments(xf, mask)
+            self._track(mean.detach(), var.detach(), cnt)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean.view(shape)) * torch.rsqrt(var.view(shape) + self.eps)
         if self.affine:
             y = y * self.weight.view(shape) + self.bias.view(shape)
         return y.to(self.compute_dtype or x.dtype)
@@ -71,12 +114,19 @@ class ConditionalBatchNorm(nn.Module):
 
     def eval_affine(self, y):
         """Per-row (a, b), each (N, C) f32, with CBN(x, y) == a * x + b."""
-        a0, b0 = self.bn.eval_affine()
+        return self._per_row(y, *self.bn.eval_affine())
+
+    def train_affine(self, y, mean, var, cnt):
+        """Per-row (a, b) for train-mode CBN given batch moments computed
+        outside the layer; the BN's running statistics advance."""
+        return self._per_row(y, *self.bn.train_affine(mean, var, cnt))
+
+    def _per_row(self, y, a0, b0):
         gamma, beta = self.embed(y).chunk(2, dim=-1)
         return gamma * a0, gamma * b0 + beta
 
-    def forward(self, x, y):
-        out = self.bn(x)
+    def forward(self, x, y, mask=None):
+        out = self.bn(x, mask)
         gamma, beta = self.embed(y).chunk(2, dim=-1)
         shape = gamma.shape + (1,) * (x.ndim - 2)
         return out * gamma.view(shape).to(out.dtype) + beta.view(shape).to(out.dtype)

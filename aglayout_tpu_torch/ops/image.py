@@ -1,4 +1,5 @@
-"""ImageNet (de)normalization, NHWC, as `aglayout_tpu/ops/image.py`."""
+"""ImageNet (de)normalization, NHWC, as `aglayout_tpu/ops/image.py`
+(the reference's `data/utils.py:28-66`)."""
 
 from __future__ import annotations
 
@@ -6,6 +7,13 @@ import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+
+def imagenet_preprocess(images):
+    """[0, 1] float (..., 3) -> ImageNet-normalized, in the images' dtype."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
+    std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
+    return (images - mean) / std
 
 
 def imagenet_deprocess(images, rescale: bool = True):

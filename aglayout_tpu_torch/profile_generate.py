@@ -1,8 +1,9 @@
-"""Where a serving batch spends its time, stage by stage and kernel by
-kernel, on one CUDA card:
+"""Where a serving batch, or a train step, spends its time, stage by stage
+and kernel by kernel, on one CUDA card:
 
     python3 -m aglayout_tpu_torch.profile_generate [--image_size 64|128] [--off] [--batches 5]
         [--int8] [--typed_c3 v4|v5|v6]
+    python3 -m aglayout_tpu_torch.profile_generate --train_step [B] [--f32] [--batches 5]
 
 The full-width generator (128^2 by default; B = 128, O = 10, bf16, seeded
 weights, the serving bench's layouts), the hand-written kernels on (or,
@@ -16,9 +17,18 @@ over `--batches` batches after warm-up:
     events give its device time, the host clock its host time. The stages
     do not overlap, so their sum is more than a batch takes when it runs
     freely;
-  * free-running under `torch.profiler`: kernel launches per batch, the
-    device's busy time per batch (the sum of its kernels' times), the batch
-    time by CUDA events, and the kernels that take most of it, by name.
+  * free-running: the batch time by CUDA events, then under
+    `torch.profiler` kernel launches per batch, the device's busy time per
+    batch (the sum of its kernels' times), its share of the batch time
+    taken without the profiler (and of the one under it, which the
+    profiler's host work stretches), and the kernels that take most of it,
+    by name.
+
+With `--train_step [B]` (B=8 when not given) the second pass profiles
+`--batches` steps of `train/step.py` on the bench's synthetic batch (bf16,
+or with `--f32` f32 with TF32 off; the models in training mode, no kernel
+of the port) after two warm-up steps: launches, device busy time and its
+share of each step.
 """
 
 from __future__ import annotations
@@ -91,18 +101,28 @@ def staged(model, ins, batches: int) -> dict:
             if calls}
 
 
-def profiled(model, ins, batches: int):
-    """(launches per batch, busy ms per batch, event ms per batch, [(kernel, ms per batch)])."""
-    from torch.profiler import ProfilerActivity, profile
-
+def event_ms(fn, batches: int) -> float:
+    """fn() `batches` times: ms per call by CUDA events."""
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    start.record()
+    for _ in range(batches):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / batches
+
+
+def profiled(fn, batches: int):
+    """fn() `batches` times under the profiler, after as many calls timed
+    without it: (launches per call, busy ms per call, event ms per call
+    without the profiler, event ms per call under it, [(kernel, ms per
+    call)])."""
+    from torch.profiler import ProfilerActivity, profile
+
+    plain_ms = event_ms(fn, batches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(batches):
-            model.generate(*ins)
-        end.record()
-        torch.cuda.synchronize()
+        traced_ms = event_ms(fn, batches)
     kernels = {}
     launches = 0
     for ev in prof.events():
@@ -113,8 +133,44 @@ def profiled(model, ins, batches: int):
             kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:25]
-    return (launches / batches, busy / batches, start.elapsed_time(end) / batches,
+    return (launches / batches, busy / batches, plain_ms, traced_ms,
             [(name, ms / batches) for name, ms in top])
+
+
+def report(tag: str, what: str, batches: int, profile) -> None:
+    """The busy share is the kernels' time over the call's time without
+    the profiler, whose own host work stretches the calls it traces."""
+    launches, busy, plain_ms, traced_ms, top = profile
+    plural = {"batch": "batches", "step": "steps"}[what]
+    print(f"{tag}: free-running, {batches} {plural}: {launches:.0f} launches a {what}, device "
+          f"busy {busy:.3f} ms a {what}; {plain_ms:.3f} ms a {what} by CUDA events without the "
+          f"profiler, busy share {busy / plain_ms:.2f}; {traced_ms:.3f} ms under it "
+          f"(busy share {busy / traced_ms:.2f})", flush=True)
+    for name, ms in top:
+        print(f"[profile]   {ms:8.3f} ms  {name[:110]}", flush=True)
+
+
+def train_step_profile(args, smi: str) -> None:
+    """The second pass over `args.batches` train steps."""
+    from aglayout_tpu_torch.bench import train_inputs
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.train.state import create_train_state
+    from aglayout_tpu_torch.train.step import make_train_step
+
+    b = args.train_step
+    cfg = config_for(args.image_size, batch_size=b, bf16=not args.f32)
+    if args.f32:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    batch, matrix, pos_weight = train_inputs(cfg, b)
+    batch = batch_to_torch(batch, "cuda")
+    state = create_train_state(cfg, "cuda", seed=0)
+    step = make_train_step(cfg, state.models, matrix, pos_weight)
+    for _ in range(2):
+        step(state, batch)
+    tag = (f"[profile] train step {args.image_size}^2 B={b} "
+           f"{'f32 (TF32 off)' if args.f32 else 'bf16'}, {smi}")
+    report(tag, "step", args.batches, profiled(lambda: step(state, batch), args.batches))
 
 
 def main() -> int:
@@ -130,11 +186,17 @@ def main() -> int:
     ap.add_argument("--int8", action="store_true", help="Config.int8_serving (bench --int8)")
     ap.add_argument("--typed_c3", choices=["v4", "v5", "v6"], default="v4",
                     help="the typed c3 kernel (Config.typed_c3)")
+    ap.add_argument("--train_step", type=int, nargs="?", const=8, default=None, metavar="B",
+                    help="profile the GAN train step at batch B (default 8) instead")
+    ap.add_argument("--f32", action="store_true", help="with --train_step: f32 models, TF32 off")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate: needs a CUDA card")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    if args.train_step is not None:
+        train_step_profile(args, smi)
+        return 0
     size = args.image_size
     cfg = config_for(size, batch_size=cs.B, max_objects=cs.O, bf16=True, int8_serving=args.int8,
                      typed_c3=args.typed_c3)
@@ -148,12 +210,7 @@ def main() -> int:
     print(f"{tag}: staged, {args.batches} batches", flush=True)
     for name, (dev, host) in staged(model, ins, args.batches).items():
         print(f"[profile]   {name}: device {dev:.3f} ms, host {host:.3f} ms", flush=True)
-    launches, busy, event_ms, top = profiled(model, ins, args.batches)
-    print(f"{tag}: free-running, {args.batches} batches: {launches:.0f} launches a batch, device "
-          f"busy {busy:.3f} ms a batch, {event_ms:.3f} ms a batch by CUDA events (under the "
-          f"profiler), busy share {busy / event_ms:.2f}", flush=True)
-    for name, ms in top:
-        print(f"[profile]   {ms:8.3f} ms  {name[:110]}", flush=True)
+    report(tag, "batch", args.batches, profiled(lambda: model.generate(*ins), args.batches))
     return 0
 
 

@@ -1,0 +1,80 @@
+"""One train step on two devices from the same weights, batch and draws,
+held against each other (the card's f32 step against the CPU's).
+
+After one step Adam's first moment is (1 - beta1) g = g / 2, so each
+param's gradient is read back from its optimizer, and its first step is
+lr g / (|g| + eps): about +-lr, so a gradient whose sign differs between
+the two runs moves the param by about 2 lr, and one whose sign agrees by
+the same amount to within lr eps / |g|.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from aglayout_tpu_torch.config import Config
+
+
+def step_draws(cfg: Config, seed: int) -> dict:
+    """The draws of one train step (`train_step(draws=)`) on the CPU,
+    seeded: z, the first G forward's eps, and the swap's draws."""
+    gen = torch.Generator().manual_seed(seed)
+    b, o, a = cfg.batch_size, cfg.max_objects, cfg.attribute_dim
+    n = b * o
+    return {"z": torch.randn(b, o, cfg.z_dim, generator=gen),
+            "eps": torch.randn(n, cfg.z_dim, generator=gen),
+            "swap": (torch.randint(0, a, (n,), generator=gen),
+                     torch.randint(0, a, (n,), generator=gen),
+                     torch.rand(n, generator=gen) < 0.5)}
+
+
+def params_and_grads(state) -> dict:
+    """name -> (param, gradient) of every net after one step, on the CPU."""
+    return {f"{name}.{key}": (p.detach().cpu(), 2 * state.opt[name].state[p]["exp_avg"].cpu())
+            for name, module in state.models.items() for key, p in module.named_parameters()}
+
+
+def adam_sure(g, other, lr: float, eps: float = 1e-8, tol: float = 1e-6):
+    """Where Adam's first step moves a param by the same amount to within
+    `tol` for either gradient g or other: the same sign, and both |.| above
+    lr eps / tol and above 1e-3 of g's tensor's max."""
+    floor = max(1e-3 * g.abs().max().item(), lr * eps / tol)
+    return (torch.sign(g) == torch.sign(other)) & (g.abs() > floor) & (other.abs() > floor)
+
+
+def run_step(cfg: Config, device, draws: dict | None = None, seed: int = 0):
+    """One train step of a fresh state (weights from `seed`) on the seeded
+    synthetic batch of `bench.train_inputs`, on `device`, with `draws` (on
+    the CPU) or the state's own: (state, metrics)."""
+    from aglayout_tpu_torch.bench import train_inputs
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.train.state import create_train_state
+    from aglayout_tpu_torch.train.step import make_train_step
+
+    batch, matrix, pos_weight = train_inputs(cfg, cfg.batch_size, seed)
+    state = create_train_state(cfg, device, seed=seed)
+    step = make_train_step(cfg, state.models, matrix, pos_weight)
+    if draws is not None:
+        draws = {k: tuple(t.to(device) for t in v) if k == "swap" else v.to(device)
+                 for k, v in draws.items()}
+    return step(state, batch_to_torch(batch, device), draws=draws)
+
+
+def compare_steps(cfg: Config, devices, draws: dict) -> dict:
+    """`run_step` on each of two devices, the first the reference: the
+    metrics' largest relative difference ("metrics"), the params' largest
+    difference where `adam_sure` ("params_sure") and anywhere
+    ("params_any"), and that bound, 2 lr ("params_any_tol")."""
+    (s_ref, m_ref), (s_got, m_got) = (run_step(cfg, d, draws) for d in devices)
+    metrics = max(abs(m_got[k].item() - m_ref[k].item()) / abs(m_ref[k].item())
+                  for k in m_ref if k != "images")
+    got = params_and_grads(s_got)
+    sure = anywhere = 0.0
+    for key, (p, g) in params_and_grads(s_ref).items():
+        q, gq = got[key]
+        diff = (q - p).abs()
+        mask = adam_sure(g, gq, cfg.learning_rate)
+        sure = max(sure, diff[mask].max().item() if mask.any() else 0.0)
+        anywhere = max(anywhere, diff.max().item())
+    return {"metrics": metrics, "params_sure": sure, "params_any": anywhere,
+            "params_any_tol": 2 * cfg.learning_rate}

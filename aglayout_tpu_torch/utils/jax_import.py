@@ -1,5 +1,5 @@
 """Weight bridge: JAX generator and discriminator trees -> this package's
-`state_dict`s.
+`state_dict`s, and a JAX train state -> the port's (`train_state_from_jax`).
 
 The inverse of `aglayout_tpu/utils/torch_import.py::import_generator` and
 `import_*_discriminator`: it takes the JAX (params, batch_stats) trees as
@@ -175,3 +175,43 @@ def attribute_discriminator_state_dict_from_jax(params, batch_stats,
     _d_trunk(t, 6 if extra_block else 5)
     t.sn_linear("classifier_att", ("classifier_att",))
     return t.sd
+
+
+def _adam_moments(opt):
+    """(count, mu, nu) of an optax Adam state (the `ScaleByAdamState` in
+    the chain's tuple)."""
+    adam = next(s for s in opt if hasattr(s, "mu"))
+    return int(np.asarray(adam.count)), adam.mu, adam.nu
+
+
+def train_state_from_jax(jax_state, cfg, device):
+    """A JAX `TrainState` -> the port's (`train/state.py`) for `cfg`, on
+    `device`: each net's params and statistics through its
+    `*_state_dict_from_jax`, optax Adam's mu, nu and count into its
+    `torch.optim.Adam`'s exp_avg, exp_avg_sq and step (the moments through
+    the params' own layout conversion, which is linear), and the step
+    counter. The draws' generator is the port's own: a JAX key has no
+    counterpart."""
+    from aglayout_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, device, seed=cfg.seed)
+    to_sd = {
+        "g": lambda p, s: generator_state_dict_from_jax(p, s, cfg.image_size, cfg.clstm_layers,
+                                                        cfg.resi_num),
+        "d_image": image_discriminator_state_dict_from_jax,
+        "d_object": object_discriminator_state_dict_from_jax,
+        "d_att": lambda p, s: attribute_discriminator_state_dict_from_jax(
+            p, s, extra_block=cfg.image_size == 128),
+    }
+    for name, module in state.models.items():
+        net = getattr(jax_state, name)
+        module.load_state_dict(to_sd[name](net.params, net.stats))
+        count, mu, nu = _adam_moments(net.opt)
+        mu_sd, nu_sd = to_sd[name](mu, net.stats), to_sd[name](nu, net.stats)
+        opt = state.opt[name]
+        for key, p in module.named_parameters():
+            opt.state[p] = {"step": torch.tensor(float(count)),
+                            "exp_avg": mu_sd[key].to(device),
+                            "exp_avg_sq": nu_sd[key].to(device)}
+    state.step = int(np.asarray(jax_state.step))
+    return state

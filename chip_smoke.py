@@ -79,7 +79,21 @@ raises, and the run then exits non-zero without printing a result:
      others on 320 64^2 crops, in bf16 and f32 (TF32 off): u and v after
      one `update_stats` call against the CPU's, the f32 logits against the
      CPU's on a slice, bf16 against f32, outputs finite, each forward timed
-     (no kernel of the port: cuDNN's convs).
+     (no kernel of the port: cuDNN's convs);
+ 12. train step (`train/step.py`, the models in training mode, where every
+     route is the plain composition): at small widths (64^2, B=3, O=3) in
+     f32 with TF32 off, one step on the card against the same step on the
+     CPU from the same weights, batch and draws (every metric within 1e-4
+     relative; every net's params within 1e-6 where the two gradients agree
+     within 1% and |g| > 1e-3 of its tensor's max, within 2 lr elsewhere:
+     Adam's first step moves a param by about +-lr); then the 128^2 model
+     at its full width (conv_dim 64, d_conv_dim 64, 179 classes, 106
+     attributes, O=10) at B=8 in bf16 and in f32 (TF32 off): one warm-up
+     step and 5 timed ones (CUDA events; the parts of a step from the events
+     it marks), peak memory; every metric finite, all four nets' params
+     moved, and no kernel of the port launched over the steps; then one eval
+     `generate` of the trained bf16 generator, which must launch the 128^2
+     path's kernels as phase 4's model does.
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -1213,6 +1227,95 @@ def phase_discriminators(smi: str):
     set_tf32(True)
 
 
+def train_params_raw(state):
+    """Each net's params, copied."""
+    return {name: [p.detach().clone() for p in m.parameters()] for name, m in state.models.items()}
+
+
+def phase_train(smi: str):
+    from aglayout_tpu_torch.bench import TRAIN_SMALL, layouts, train_inputs
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.train.compare import compare_steps, step_draws
+    from aglayout_tpu_torch.train.state import create_train_state
+    from aglayout_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    # ---- small widths, f32, TF32 off: the card against the CPU
+    set_tf32(False)
+    cfg = config_for(64, **TRAIN_SMALL)
+    err = compare_steps(cfg, ("cpu", "cuda"), step_draws(cfg, 0))
+    log(f"[train] small f32 step (TF32 off), card against CPU: metrics max rel "
+        f"{err['metrics']:.3e} (tol 1e-4); params max abs err {err['params_sure']:.3e} where "
+        f"Adam's first step is the same for both gradients (tol 1e-6), {err['params_any']:.3e} "
+        f"anywhere (tol 2 lr = {err['params_any_tol']:.0e})")
+    if (err["metrics"] > 1e-4 or err["params_sure"] > 1e-6
+            or err["params_any"] > err["params_any_tol"] + 1e-6):
+        raise AssertionError("train step: the card and the CPU disagree")
+
+    # ---- the 128^2 model at its full width, B=8, bf16 and f32 (TF32 off)
+    trained = None
+    for bf16 in (True, False):
+        label = "bf16" if bf16 else "f32 (TF32 off)"
+        cfg = config_for(128, batch_size=8, max_objects=O, bf16=bf16)
+        batch, matrix, pw = train_inputs(cfg, 8)
+        batch = batch_to_torch(batch, "cuda")
+        state = create_train_state(cfg, "cuda", seed=0)
+        before = train_params_raw(state)
+        step = make_train_step(cfg, state.models, matrix, pw)
+        launch_counts(reset=True)
+        state, _ = step(state, batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        marks, finite = [], True
+        for _ in range(5):
+            ev = {"start": torch.cuda.Event(enable_timing=True)}
+            ev["start"].record()
+
+            def mark(name, ev=ev):
+                ev[name] = torch.cuda.Event(enable_timing=True)
+                ev[name].record()
+
+            state, metrics = step(state, batch, mark=mark)
+            marks.append(ev)
+        torch.cuda.synchronize()
+        finite = all(torch.isfinite(v).all().item() for k, v in metrics.items() if k != "images")
+        launches = {k: v for k, v in launch_counts().items() if v}
+        moved = {name: any(not torch.equal(p.detach(), q) for p, q in zip(m.parameters(), before[name]))
+                 for name, m in state.models.items()}
+        ms = marks[0]["start"].elapsed_time(marks[-1]["g_phase"]) / 5
+        parts = {name: sum(e[prev].elapsed_time(e[name]) for e in marks) / 5
+                 for name, prev in zip(("prep", "g_forward", "d_phase", "g_phase"),
+                                       ("start", "prep", "g_forward", "d_phase"))}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"[train] 128^2 full width B=8 {label}: {1e3 / ms:.3f} steps/s, {8e3 / ms:.1f} img/s, "
+            f"{ms:.2f} ms/step (CUDA events, 5 steps after 1 warm-up); parts "
+            f"{ {k: round(v, 2) for k, v in parts.items()} } ms, D phase "
+            f"{parts['d_phase'] / ms:.1%} of the step; peak memory {peak:.2f} GiB; metrics finite "
+            f"{finite}; params moved {moved}; kernel launches {launches or 'none'} | {smi}")
+        if not finite or not all(moved.values()) or launches:
+            raise AssertionError(f"train step {label}: non-finite metrics, a net that did not "
+                                 f"move, or a kernel launch ({launches})")
+        if bf16:
+            trained = state.models.g
+        del state, step, batch, before
+    set_tf32(True)
+
+    # ---- the trained generator still serves through its kernels
+    trained.eval()
+    cfg = config_for(128, batch_size=B, max_objects=O, bf16=True)
+    launch_counts(reset=True)
+    img = trained.generate(*layouts(cfg, B, O, seed=0, device="cuda"))
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    wrong = {k: v for k, v in launches.items() if v != PATH128.get(k, 0)}
+    log(f"[train] eval generate of the trained bf16 generator: launches "
+        f"{ {k: v for k, v in launches.items() if v} }, finite {torch.isfinite(img.float()).all().item()}")
+    if wrong or not torch.isfinite(img.float()).all():
+        raise AssertionError(f"generate after training: launches {wrong}, expected {PATH128}")
+    log(f"[train] phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1242,6 +1345,7 @@ def main() -> int:
     phase_fallthrough_int8()
     phase_wide_typed()
     phase_discriminators(smi)
+    phase_train(smi)
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

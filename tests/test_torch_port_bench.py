@@ -78,3 +78,47 @@ def test_layouts_are_seeded_and_valid():
     assert objs.shape == (3, 4) and int(objs.max()) < cfg.num_classes
     assert boxes.shape == (3, 4, 4) and (boxes[..., 2:] >= boxes[..., :2]).all() and boxes.max() <= 1
     assert valid.eq(1).all() and z.shape == (3, 4, cfg.z_dim) and attr.shape == (3, 4, 12)
+
+
+def test_train_step_flags():
+    args = _args("--train_step", "--remat", "--double_g_forward", "--f32")
+    cfg = bench.config_from_args(args)
+    assert bench.batch_size(args) == 8 and cfg.batch_size == 8
+    assert cfg.remat and cfg.double_g_forward and not cfg.bf16 and cfg.image_size == 128
+    assert bench.batch_size(_args("--train_step", "32")) == 32
+    assert bench.batch_size(_args()) == 128 and _args().train_step is None
+
+
+@pytest.mark.parametrize("extra", [[], ["--remat", "--double_g_forward"]])
+def test_train_step_on_cpu_gives_the_json_line(extra, capsys, monkeypatch):
+    """`main` with --train_step on a narrow 64^2 model at B=3, two steps:
+    one JSON line with steps/sec, the parts of a step and the D phase's share."""
+    import dataclasses
+
+    real = bench.config_from_args
+    narrow = lambda args, **kw: dataclasses.replace(real(args, **kw), **NARROW, d_conv_dim=8)  # noqa: E731
+    monkeypatch.setattr(bench, "config_from_args", narrow)
+    bench.main(["--train_step", "3", "--device", "cpu", "--image_size", "64", "--max_objects", "3",
+                "--iters", "2", *extra])
+    line = capsys.readouterr().out.strip().splitlines()
+    assert len(line) == 1
+    out = json.loads(line[0])
+    assert out["metric"] == "64x64 GAN train steps/sec/chip (batch 3)" and out["unit"] == "steps/sec"
+    assert math.isfinite(out["value"]) and out["value"] > 0 and out["ms_per_step"] > 0
+    assert set(out["phase_ms"]) == set(bench.PHASES) and 0 < out["d_phase_share"] < 1
+    assert out["peak_memory_gib"] is None and out["card"].startswith("cpu")
+    assert out["config"]["remat"] is bool(extra) and out["config"]["batch_size"] == 3
+
+
+@pytest.mark.parametrize("f32", [False, True])
+def test_train_step_f32_turns_tf32_off(f32, monkeypatch):
+    """Under --f32 the timed steps run with TF32 off in cuBLAS and cuDNN;
+    the flags come back after."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    seen = []
+    monkeypatch.setattr(bench, "_time_train", lambda args, cfg: seen.append(
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)))
+    bench.run_train(_args("--train_step", *(["--f32"] if f32 else [])))
+    assert seen == [(not f32, not f32)]
+    assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32

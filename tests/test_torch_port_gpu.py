@@ -10,6 +10,7 @@ one. The file imports no JAX, so it runs where only PyTorch is installed:
 import pytest
 import torch
 
+from aglayout_tpu_torch.bench import TRAIN_SMALL
 from aglayout_tpu_torch.config import config_for
 from aglayout_tpu_torch.models import build_discriminators, build_generator, init_weights
 from aglayout_tpu_torch.models.convlstm import ConvLSTMCell
@@ -35,6 +36,7 @@ from aglayout_tpu_torch.ops.spade_conv import (
 )
 from aglayout_tpu_torch.ops import typed_expand
 from aglayout_tpu_torch.ops.typed_expand import typed_c3_expand, typed_c3_expand_plain
+from aglayout_tpu_torch.train.compare import compare_steps, run_step, step_draws
 
 pytestmark = pytest.mark.gpu
 DT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -954,3 +956,67 @@ def test_discriminator_on_card_matches_cpu(cuda, index, side):
         for (key, a), b in zip(net.state_dict().items(), ref.state_dict().values()):
             if key.endswith(("weight_u", "weight_v")):
                 assert (a.cpu() - b).abs().max().item() <= 1e-5, key
+
+
+# ---- the train step: the models in training mode, no kernel of the port
+
+def _all_launches():
+    from aglayout_tpu_torch.ops.typed_expand import (
+        typed_c3_expand_v3,
+        typed_c3_expand_v5,
+        typed_c3_expand_v6,
+    )
+
+    return sum(k.launches for k in (residual_trunk, spade_few_out_conv, spade_few_out_conv8,
+                                    spade_apply8, spade_apply_t, typed_c3_expand,
+                                    typed_c3_expand_v3, typed_c3_expand_v5, typed_c3_expand_v6,
+                                    conv_small_int8, spade_c6_int8))
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_train_step_on_card_matches_cpu(cuda, size):
+    """A small f32 step (TF32 off) on the card against the CPU, same
+    weights, batch and draws (`train/compare.py`): metrics within 1e-4
+    relative; params within 1e-6 where Adam's first step is the same for
+    both gradients (`adam_sure`), within 2 lr anywhere."""
+    cfg = config_for(size, **TRAIN_SMALL)
+    err = compare_steps(cfg, ("cpu", cuda), step_draws(cfg, size))
+    assert err["metrics"] <= 1e-4, err
+    assert err["params_sure"] <= 1e-6 and err["params_any"] <= err["params_any_tol"] + 1e-6, err
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_train_step_at_full_width_launches_no_kernel(cuda, bf16):
+    """The 64^2 model at its published widths, B=2: one step launches none of
+    the port's kernels, its metrics are finite and all four nets move."""
+    cfg = config_for(64, batch_size=2, bf16=bf16)
+    before = _all_launches()
+    state, metrics = run_step(cfg, cuda)
+    torch.cuda.synchronize()
+    assert _all_launches() == before
+    assert all(torch.isfinite(v).all() for k, v in metrics.items() if k != "images")
+    from aglayout_tpu_torch.train.state import build_models
+
+    fresh = build_models(cfg, "cpu", seed=0)
+    for name, m in state.models.items():
+        assert any(not torch.equal(p.detach().cpu(), q) for p, q in
+                   zip(m.parameters(), getattr(fresh, name).parameters())), name
+
+
+def test_generate_after_a_train_step_takes_its_kernels(cuda):
+    """A trained 64^2 bf16 generator, put in eval mode, serves through K1 and
+    K2 again."""
+    cfg = config_for(64, batch_size=2, bf16=True)
+    state, _ = run_step(cfg, cuda)
+    g = state.models.g.eval()
+    k1, k2 = residual_trunk.launches, spade_few_out_conv.launches
+    gen = torch.Generator().manual_seed(1)
+    b, o = 8, cfg.max_objects
+    boxes = torch.rand(b, o, 2, generator=gen) * 0.6
+    boxes = torch.cat([boxes, boxes + 0.3], -1)
+    img = g.generate(torch.randint(0, 179, (b, o), generator=gen).to(cuda), boxes.to(cuda),
+                     torch.ones(b, o).to(cuda), torch.randn(b, o, 64, generator=gen).to(cuda),
+                     torch.zeros(b, o, 106).to(cuda))
+    torch.cuda.synchronize()
+    assert residual_trunk.launches == k1 + 1 and spade_few_out_conv.launches == k2 + 1
+    assert torch.isfinite(img.float()).all()

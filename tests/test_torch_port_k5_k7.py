@@ -202,6 +202,7 @@ def test_k5_typed_route_at_wide_widths(conv_dim, variant):
     with torch.device("meta"):
         enc = LayoutEncoder(23, image_size=128, conv_dim=conv_dim, resi_num=2,
                             clstm_dims=(conv_dim,), dtype=torch.bfloat16, typed_c3=variant)
+    enc.eval()  # the typed route is the eval path's
     assert enc.c3.weight.shape == (4 * conv_dim, 2 * conv_dim, 4, 4)
     z2 = torch.zeros(4, 12, 12, 2 * conv_dim, dtype=torch.bfloat16)
     assert enc.typed_route(z2, 32) == variant

@@ -159,7 +159,7 @@ def _layer0(d, **kw):
     dims = clstm_hidden_dims(3, d)
     with torch.device("meta"):
         fuser = LayoutFuser(8 * d, dims, int8_serving=True, dtype=torch.bfloat16, **kw)
-    cell = fuser.cell_list[0]
+    cell = fuser.cell_list[0].eval()  # int8 serving: the eval path's route
     return cell, torch.empty(4, 8 * d + dims[0], 8, 8, dtype=torch.bfloat16, device="meta")
 
 
@@ -181,7 +181,7 @@ def test_int8_route_falls_through_by_shape():
     cell, inp = _layer0(64)
     assert cell.int8_route(torch.empty(4, inp.shape[1], 16, 16, device="meta")) == "plain"
     with torch.device("meta"):
-        even = ConvLSTMCell(512, 128, kernel_size=4, int8_serving=True)
+        even = ConvLSTMCell(512, 128, kernel_size=4, int8_serving=True).eval()
     assert even.int8_engaged and even.int8_route(inp) == "plain"
     assert not _layer0(57)[0].int8_engaged
 

@@ -160,7 +160,8 @@ def test_shifted_plain_on_flat_tables_in_bf16():
 
 def _models(size, conv_dim, dtype=torch.bfloat16, **kw):
     """The layout encoder and decoder at `size` and `conv_dim`, weights on
-    the meta device: the routes read their shapes only."""
+    the meta device: the routes read their shapes only. In eval mode, the
+    only mode whose routes take a kernel."""
     with torch.device("meta"):
         enc = LayoutEncoder(23, image_size=size, conv_dim=conv_dim, resi_num=2,
                             clstm_dims=(conv_dim,), dtype=dtype,
@@ -169,7 +170,7 @@ def _models(size, conv_dim, dtype=torch.bfloat16, **kw):
         dec = Decoder(image_size=size, conv_dim=conv_dim, dtype=dtype,
                       **{k: v for k, v in kw.items() if k.startswith("use_") and k not in (
                           "use_trunk_kernel", "use_typed_kernel")})
-    return enc, dec
+    return enc.eval(), dec.eval()
 
 
 def _sites(size, d, dtype=torch.bfloat16):
