@@ -76,8 +76,12 @@ class Config:
     use_compact_heads: bool = True
     # under int8_serving only
     use_int8_kernel: bool = True  # ops/conv8_int8.conv_small_int8 (ConvLSTM gate conv)
-    # the JAX package's training and input-pipeline knobs, kept so that its
-    # configs load; the port's eval path does not read them
+    # training and input pipeline, as in the JAX package: a missing
+    # co-occurrence matrix is refused unless allowed (train/loop.py);
+    # libjpeg's DCT-domain scaled decode on the native batch path
+    # (data/dataset.py); the step rasterizes the masks from the boxes, so the
+    # loop does not copy them to the device; the G forward recomputed in its
+    # backward; a second G forward in the G phase, as the reference's
     allow_uniform_matrix: bool = False
     fast_decode: bool = True
     device_masks: bool = True

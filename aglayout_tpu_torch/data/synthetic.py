@@ -134,6 +134,14 @@ def synthetic_scene_batch(
 
 
 def batch_to_torch(batch, device):
-    """A numpy batch -> tensors on `device`, class ids as int64."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device, torch.long if k == "objs" else None)
-            for k, v in batch.items()}
+    """A numpy batch -> tensors on `device`, class ids as int64. To a CUDA
+    device each array goes through pinned host memory, and the copy is
+    queued on the current stream without blocking the host."""
+    cuda = torch.device(device).type == "cuda"
+    out = {}
+    for k, v in batch.items():
+        t = torch.from_numpy(np.asarray(v))
+        if cuda:
+            t = t.pin_memory()
+        out[k] = t.to(device, torch.long if k == "objs" else None, non_blocking=cuda)
+    return out

@@ -6,6 +6,9 @@ param's gradient is read back from its optimizer, and its first step is
 lr g / (|g| + eps): about +-lr, so a gradient whose sign differs between
 the two runs moves the param by about 2 lr, and one whose sign agrees by
 the same amount to within lr eps / |g|.
+
+`state_mismatches` holds two whole train states against each other (a
+checkpoint's round trip).
 """
 
 from __future__ import annotations
@@ -78,3 +81,27 @@ def compare_steps(cfg: Config, devices, draws: dict) -> dict:
         anywhere = max(anywhere, diff.max().item())
     return {"metrics": metrics, "params_sure": sure, "params_any": anywhere,
             "params_any_tol": 2 * cfg.learning_rate}
+
+
+def state_mismatches(a, b) -> list:
+    """What differs between two train states: every net's `state_dict`
+    entry, every Adam state tensor (value and device) and hyperparameter,
+    the draws' generator state and the step; [] when all are equal."""
+    bad = []
+    for name, m in a.models.items():
+        sa, sb = m.state_dict(), getattr(b.models, name).state_dict()
+        bad += [f"{name}.{k}" for k in sa.keys() | sb.keys()
+                if k not in sa or k not in sb or not torch.equal(sa[k], sb[k])]
+        oa, ob = a.opt[name].state_dict(), b.opt[name].state_dict()
+        if oa["param_groups"] != ob["param_groups"] or oa["state"].keys() != ob["state"].keys():
+            bad.append(f"opt.{name}")
+            continue
+        for i, sa_i in oa["state"].items():
+            sb_i = ob["state"][i]
+            bad += [f"opt.{name}.{i}.{k}" for k in sa_i
+                    if sa_i[k].device != sb_i[k].device or not torch.equal(sa_i[k], sb_i[k])]
+    if a.rng.device != b.rng.device or not torch.equal(a.rng.get_state(), b.rng.get_state()):
+        bad.append("rng")
+    if a.step != b.step:
+        bad.append("step")
+    return bad

@@ -94,6 +94,27 @@ raises, and the run then exits non-zero without printing a result:
      moved, and no kernel of the port launched over the steps; then one eval
      `generate` of the trained bf16 generator, which must launch the 128^2
      path's kernels as phase 4's model does.
+ 13. trainer, the 128^2 model at its full width, B=8, bf16, through the
+     port's train entry points (no kernel of the port in a train step):
+     (a) `train/loop.train` on the synthetic stream for 12 steps (log_step
+     4, save_step 6, save_num 2, TensorBoard at step 12): 3 log lines,
+     checkpoints at steps 6 and 12 only, metrics finite, the last log
+     window's ms/step beside `bench.run_train`'s (CUDA events) in the same
+     call; (b) the step-12 checkpoint restored twice into fresh states:
+     every param, buffer, Adam state tensor, the CUDA generator's state and
+     the step `torch.equal`; its size, save and restore seconds; then one
+     more step from the original and from both restored states on one
+     batch: the original against a restored one within 4x the spread of
+     the two restored ones + 1e-6 (a step need not be bit-deterministic on
+     the card; both were 0 on an H100); (d) the checkpoint's generator loaded into `build_generator` in
+     eval mode: `generate` at B=128 launches exactly the 128^2 path's
+     kernels (counts set to 0 just before, read just after) and equals the
+     trained generator in memory bit for bit; (c) `python -m
+     aglayout_tpu_torch.train --synthetic --image_size 128` as a
+     subprocess, SIGTERM after 3 log lines: the `[preempt]` line, rc 0,
+     and `--resume l` through the entry point ends one step later. The
+     checkpoints (about 1 GB each) are deleted when the phase ends. The
+     Visual Genome leg is not run: the card's host has no h5py.
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -1316,6 +1337,188 @@ def phase_train(smi: str):
     log(f"[train] phase done in {time.perf_counter() - t0:.1f} s")
 
 
+class _Tee:
+    """stdout that also keeps what was written (the loop's log lines)."""
+
+    def __init__(self, out):
+        self.out, self.parts = out, []
+
+    def write(self, text):
+        self.parts.append(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+    def lines(self, prefix: str):
+        return [line for line in "".join(self.parts).splitlines() if line.startswith(prefix)]
+
+
+def phase_trainer(smi: str):
+    """The trainer through its entry points, at the 128^2 model's full
+    width, B=8, bf16: (a) the loop, (b) the checkpoint round trip, (c)
+    preemption and resume, (d) serving from the checkpoint."""
+    import contextlib
+    import os
+    import re
+    import shutil
+    import signal
+    import warnings
+    from pathlib import Path
+
+    from aglayout_tpu_torch.bench import layouts, parser, run_train
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.models import build_generator
+    from aglayout_tpu_torch.train import __main__ as entry
+    from aglayout_tpu_torch.train.compare import state_mismatches
+    from aglayout_tpu_torch.train.loop import make_step, prepare_dirs, train
+    from aglayout_tpu_torch.train.state import create_train_state
+    from aglayout_tpu_torch.utils.checkpoint import (
+        checkpoint_path,
+        restore_state,
+        save_state,
+        saved_steps,
+    )
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        # ---- (a) the loop: 12 steps of the synthetic stream
+        cfg = config_for(128, batch_size=8, max_objects=O, bf16=True, log_step=4, save_step=6,
+                         save_num=2, tensorboard_step=12, allow_uniform_matrix=True,
+                         path=str(root / "a"), vg_dir=str(root / "a"))
+        tee, windows = _Tee(sys.stdout), []
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(tee):
+            state, metrics = train(cfg, loader=entry.synthetic_stream(cfg), niter=12,
+                                   window_rates=windows)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t1
+        model_dir = prepare_dirs(cfg)["models"]
+        lines = tee.lines("iter [")
+        finite = all(torch.isfinite(v).all().item() for k, v in metrics.items() if k != "images")
+        bench = run_train(parser().parse_args(["--train_step", "8", "--iters", "5"]))
+        log(f"[trainer] (a) loop: 12 steps in {loop_s:.2f} s, {len(lines)} log lines, "
+            f"checkpoints at steps {saved_steps(model_dir)}, metrics finite {finite}; steps/s by "
+            f"log window {[round(r, 3) for r in windows]} (the first holds the warm-up, the second "
+            f"the save at step 6): {1e3 / windows[-1]:.1f} ms/step in the last, against "
+            f"bench --train_step 8's {bench['ms_per_step']:.1f} ms/step (CUDA events) | {smi}")
+        if len(lines) != 3 or saved_steps(model_dir) != [6, 12] or not finite or state.step != 12:
+            raise AssertionError("trainer (a): log lines, checkpoints or metrics off")
+
+        # ---- (b) checkpoint round trip, then one more step from each
+        path = checkpoint_path(model_dir, 12)
+        mb = os.path.getsize(path) / 1e6
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        save_state(str(root / "b"), 12, state)
+        save_s = time.perf_counter() - t1
+        restored = []
+        for seed in (1, 2):
+            t1 = time.perf_counter()
+            r, start = restore_state(model_dir, create_train_state(cfg, "cuda", seed=seed), "l")
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t1
+            bad = state_mismatches(state, r)
+            if start != 12 or bad:
+                raise AssertionError(f"trainer (b): restored state differs: {bad[:10]}")
+            restored.append(r)
+        log(f"[trainer] (b) checkpoint {mb:.1f} MB: save {save_s:.2f} s, restore {restore_s:.2f} s "
+            f"(into a fresh state); every param, buffer, Adam state tensor, the CUDA generator's "
+            f"state and the step torch.equal")
+        # ---- (d) serving from the checkpoint
+        scfg = config_for(128, batch_size=B, max_objects=O, bf16=True)
+        g = build_generator(scfg, "cuda", seed=5).eval()
+        sd = torch.load(path, map_location="cuda", weights_only=True)["nets"]["g"]
+        g.load_state_dict(sd)
+        ins = layouts(scfg, B, O, seed=0, device="cuda")
+        launch_counts(reset=True)
+        img = g.generate(*ins)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        want = state.models.g.eval().generate(*ins)
+        state.models.g.train()
+        err = errors(img, want)[0]
+        log(f"[trainer] (d) the checkpoint's generator in eval mode, B={B}: launches {launches}, "
+            f"against the trained generator in memory max abs err {err:.3e} (bit for bit: "
+            f"{torch.equal(img, want)})")
+        if launches != PATH128 or not torch.equal(img, want):
+            raise AssertionError(f"trainer (d): launches {launches} (expected {PATH128}) or the "
+                                 "image differs")
+        del g, sd, img, want
+
+        # ---- (b) one more step from the original and from the restored state
+        batch = batch_to_torch(next(entry.synthetic_stream(cfg)), "cuda")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # the uniform matrix, as in (a)
+            after = [make_step(cfg, s)(s, dict(batch)) for s in (state, *restored)]
+        torch.cuda.synchronize()
+
+        def step_diff(x, y):
+            (sx, mx), (sy, my) = x, y
+            m = max(abs(mx[k].item() - my[k].item()) / max(abs(my[k].item()), 1e-30)
+                    for k in mx if k != "images")
+            p = max((a - b).abs().max().item() for name, net in sx.models.items()
+                    for a, b in zip(net.parameters(), getattr(sy.models, name).parameters()))
+            return m, p
+
+        noise, got = step_diff(after[1], after[2]), step_diff(after[0], after[1])
+        log(f"[trainer] (b) one more step: the original against the restored, metrics max rel "
+            f"{got[0]:.3e}, params max abs {got[1]:.3e}; two restored copies against each other "
+            f"(the card's own spread from one state) {noise[0]:.3e}, {noise[1]:.3e}; limit 4x the "
+            f"spread + 1e-6")
+        if got[0] > 4 * noise[0] + 1e-6 or got[1] > 4 * noise[1] + 1e-6:
+            raise AssertionError("trainer (b): a step from the restored state is off")
+        del after, restored, batch, state, metrics
+        torch.cuda.empty_cache()
+
+        # ---- (c) preemption: SIGTERM to the entry point, then `--resume l`
+        argv = ["--synthetic", "--image_size", "128", "--batch_size", "8", "--bf16", "true",
+                "--log_step", "1", "--save_step", "10000", "--allow_uniform_matrix", "true",
+                "--use_tensorboard", "false", "--path", str(root / "c"), "--vg_dir",
+                str(root / "c"), "--niter", "100000"]
+        repo = Path(__file__).resolve().parent
+        proc = subprocess.Popen([sys.executable, "-m", "aglayout_tpu_torch.train"] + argv,
+                                cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+        out = []
+        try:
+            deadline, seen = time.time() + 300, 0
+            for line in proc.stdout:
+                out.append(line)
+                seen += line.startswith("iter [")
+                if seen >= 3 or time.time() > deadline:
+                    break
+            proc.send_signal(signal.SIGTERM)
+            rest, _ = proc.communicate(timeout=300)
+            out.append(rest)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        text = "".join(out)
+        m = re.search(r"\[preempt\] signal 15: saved checkpoint at step (\d+), exiting", text)
+        if not m or proc.returncode != 0:
+            raise AssertionError(f"trainer (c): rc {proc.returncode}, no [preempt] line: {text[-2000:]}")
+        k = int(m.group(1))
+        tee = _Tee(sys.stdout)
+        with contextlib.redirect_stdout(tee):
+            resumed, _ = entry.main(argv[:-1] + [str(k + 1), "--resume", "l"])
+        lines = tee.lines("iter [")
+        log(f"[trainer] (c) SIGTERM after 3 log lines: '{m.group(0)}', rc {proc.returncode}; "
+            f"`--resume l --niter {k + 1}` logged {[line[:20] for line in lines]} and ended at "
+            f"step {resumed.step}")
+        if resumed.step != k + 1 or len(lines) != 1:
+            raise AssertionError("trainer (c): the resume did not continue at the saved step")
+        del resumed
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[trainer] phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1346,6 +1549,7 @@ def main() -> int:
     phase_wide_typed()
     phase_discriminators(smi)
     phase_train(smi)
+    phase_trainer(smi)
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

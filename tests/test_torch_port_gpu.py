@@ -1020,3 +1020,67 @@ def test_generate_after_a_train_step_takes_its_kernels(cuda):
     torch.cuda.synchronize()
     assert residual_trunk.launches == k1 + 1 and spade_few_out_conv.launches == k2 + 1
     assert torch.isfinite(img.float()).all()
+
+
+# ---- the trainer (train/loop.py, utils/checkpoint.py) on the card
+
+
+def test_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """A CUDA state after one step, saved and restored into a fresh one:
+    every tensor, the Adams (moments on the card, step counts on the CPU as
+    a fresh Adam keeps them), the CUDA generator's state and the step."""
+    from aglayout_tpu_torch.train.compare import state_mismatches
+    from aglayout_tpu_torch.train.state import create_train_state
+    from aglayout_tpu_torch.utils.checkpoint import restore_state, save_state
+
+    cfg = config_for(64, **TRAIN_SMALL)
+    state, _ = run_step(cfg, cuda)
+    save_state(str(tmp_path), state.step, state)
+    restored, start = restore_state(str(tmp_path), create_train_state(cfg, cuda, seed=1), "l")
+    assert start == 1 and state_mismatches(state, restored) == []
+    assert restored.rng.device.type == "cuda"
+    for opt in restored.opt.values():
+        for s in opt.state.values():
+            assert s["step"].device.type == "cpu" and s["exp_avg"].is_cuda
+    assert torch.equal(torch.randn(7, generator=state.rng, device=cuda),
+                       torch.randn(7, generator=restored.rng, device=cuda))
+
+
+def test_train_loop_on_card(cuda, tmp_path):
+    """A few steps of the loop on the synthetic stream: logs, a checkpoint,
+    finite metrics, the state on the card; no kernel of the port launches."""
+    from aglayout_tpu_torch.train.__main__ import synthetic_stream
+    from aglayout_tpu_torch.train.loop import prepare_dirs, train
+    from aglayout_tpu_torch.utils.checkpoint import saved_steps
+
+    cfg = config_for(64, **dict(TRAIN_SMALL, log_step=1, save_step=2, allow_uniform_matrix=True,
+                                path=str(tmp_path), vg_dir=str(tmp_path)))
+    before = _all_launches()
+    state, metrics = train(cfg, loader=synthetic_stream(cfg), niter=3, use_tensorboard=False,
+                           device="cuda")
+    torch.cuda.synchronize()
+    assert state.step == 3 and saved_steps(prepare_dirs(cfg)["models"]) == [2]
+    assert all(torch.isfinite(v).all() for k, v in metrics.items() if k != "images")
+    assert all(p.is_cuda for _, m in state.models.items() for p in m.parameters())
+    assert _all_launches() == before
+
+
+def test_restored_generator_serves_through_the_128_path(cuda, tmp_path):
+    """The full-width 128^2 generator after a bf16 step, saved, loaded into
+    `build_generator` in eval mode: generate launches the 128^2 path's five
+    kernels once each and equals the trained generator in memory."""
+    from chip_smoke import PATH128, launch_counts
+    from aglayout_tpu_torch.utils.checkpoint import checkpoint_path, save_state
+
+    cfg = config_for(128, batch_size=2, bf16=True)
+    state, _ = run_step(cfg, cuda)
+    save_state(str(tmp_path), state.step, state)
+    g = build_generator(cfg, cuda, seed=3).eval()
+    g.load_state_dict(torch.load(checkpoint_path(str(tmp_path), 1), map_location=cuda,
+                                 weights_only=True)["nets"]["g"])
+    ins = [t.to(cuda) for t in _generate_inputs(cfg, 16, 10, seed=2)]
+    launch_counts(reset=True)
+    img = g.generate(*ins)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in launch_counts().items() if v} == PATH128
+    assert torch.equal(img, state.models.g.eval().generate(*ins))
