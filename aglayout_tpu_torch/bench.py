@@ -40,6 +40,7 @@ is in training mode).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -51,6 +52,7 @@ import torch
 
 from aglayout_tpu_torch.config import Config, config_for
 from aglayout_tpu_torch.models import build_generator
+from aglayout_tpu_torch.utils.device import no_tf32, require
 
 # --no_<name> -> the Config switch it turns off
 KERNEL_FLAGS = {
@@ -157,9 +159,7 @@ def batch_size(args) -> int:
 def run(args, **overrides) -> dict:
     """Time `args.iters` batches of generate, or train steps with
     `--train_step`; returns the JSON line's dict."""
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("bench: no CUDA device; this benchmark measures the card "
-                           "(--device cpu runs the plain paths for a functional check)")
+    require(args.device, "bench")  # this benchmark measures the card
     if args.train_step is not None:
         return run_train(args, **overrides)
     cfg = config_from_args(args, **overrides)
@@ -215,13 +215,8 @@ def run_train(args, **overrides) -> dict:
     `--f32` the step runs in f32 with TF32 off in cuBLAS and cuDNN, as the
     JAX package's f32 step computes; the flags come back after."""
     cfg = config_from_args(args, **overrides)
-    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    if not cfg.bf16:
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    try:
+    with contextlib.nullcontext() if cfg.bf16 else no_tf32():
         return _time_train(args, cfg)
-    finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _time_train(args, cfg) -> dict:

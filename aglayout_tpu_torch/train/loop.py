@@ -24,6 +24,7 @@ from aglayout_tpu_torch.data.vocab import attribute_pos_weight
 from aglayout_tpu_torch.train.state import create_train_state
 from aglayout_tpu_torch.train.step import make_train_step
 from aglayout_tpu_torch.utils.checkpoint import restore_state, save_state
+from aglayout_tpu_torch.utils.device import require
 from aglayout_tpu_torch.utils.logging import MetricLogger
 
 
@@ -111,8 +112,7 @@ def train(cfg: Config, loader=None, niter: int | None = None, use_tensorboard: b
     list, each log window's steps/s is appended to it."""
     if cfg.num_devices > 1:
         raise NotImplementedError("train: one device only; data parallelism is not ported yet")
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("train: no CUDA device (pass device='cpu' to train on the host)")
+    device = require(device, "train")
     dirs = prepare_dirs(cfg)
 
     if loader is None:

@@ -115,6 +115,28 @@ raises, and the run then exits non-zero without printing a result:
      and `--resume l` through the entry point ends one step later. The
      checkpoints (about 1 GB each) are deleted when the phase ends. The
      Visual Genome leg is not run: the card's host has no h5py.
+ 14. infer and eval, the 128^2 model at its full width (conv_dim 64,
+     d_conv_dim 64, 179 classes, 106 attributes, O=10, the attribute D's
+     sixth block), seeded weights and the seeded synthetic stream: (a) the
+     eval `Generator.forward` at B=32 in bf16 and in f32 with TF32 off,
+     kernels on and off: K1-K5 exactly three launches each with them on
+     (the rec, rand and shift branches), none off; the three images, the
+     four crops tensors, mu and logvar on against off within phase 4's
+     128^2 limits in bf16 and 1e-4 of the output's max in f32; ms a forward
+     by CUDA events, both dtypes; (b) small f32 eval forwards (conv_dim 16,
+     64^2 and 128^2) on the card against the CPU, 1e-4; (c)
+     `infer/generate.run_inference` at B=8, 3 batches, f32 and bf16: JAX's
+     summary keys, finite values, 4 PNGs an image (+ the _modified ones),
+     K1-K5 six launches each a batch, ms a batch on the host clock with and
+     without the PNGs; (d) `python -m aglayout_tpu_torch.test --synthetic
+     --image_size 128 --max_batches 2` as a subprocess from a checkpoint the
+     phase saves: rc 0 and a JSON summary; (e) `eval/report.evaluate_run`
+     at B=8, 2 batches, with a seeded InceptionV3 (He-normal convs) and a
+     seeded AlexNet with LPIPS heads saved as .pth files: every section
+     finite and naming the real networks; InceptionV3's pool3 and logits on
+     the card (f32, TF32 off) against the CPU on 4 images, 1e-4; images/s of
+     InceptionV3 at 299^2 and pairs/s of LPIPS-AlexNet at 128^2. Its files
+     (under build/chip_smoke_infer/) are deleted when the phase ends.
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -127,6 +149,7 @@ from __future__ import annotations
 
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -188,6 +211,10 @@ VARIANTS = (
 OURS = {"conv_small_int8": 3, "spade_c6_int8": 3}
 # the wrappers that pick between a tensor-core and an FMA kernel by shape
 ROUTED = ("residual_trunk", K2)
+# the summary of `infer/generate.run_inference` (JAX's keys)
+SUMMARY_KEYS = {"average_precision", "average_recall", "avg_pred_per_obj", "avg_gt_per_obj",
+                "frac_predicting_any", "frac_correct_once", "num_objects", "edit_success_rate",
+                "edit_candidates"}
 SWITCHES = ("use_trunk_kernel", "use_head_kernel", "use_typed_kernel", "use_apply_kernel",
             "use_head8_kernel", "use_int8_kernel")
 
@@ -1519,6 +1546,284 @@ def phase_trainer(smi: str):
     log(f"[trainer] phase done in {time.perf_counter() - t0:.1f} s")
 
 
+def eval_batch(cfg, b: int, seed: int, device):
+    """A seeded synthetic batch of `cfg` at batch b on `device`, and z, eps
+    of one eval forward from a generator on the device."""
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch, synthetic_batch
+    from aglayout_tpu_torch.infer.generate import forward_draws
+
+    batch = synthetic_batch(np.random.RandomState(seed), b, cfg.max_objects, cfg.image_size,
+                            cfg.num_classes, cfg.attribute_dim)
+    gen = torch.Generator(device).manual_seed(seed)
+    return (batch_to_torch(batch, device),
+            *forward_draws(gen, b, cfg.max_objects, cfg.z_dim, device))
+
+
+def seeded_inception(seed: int = 0):
+    """An InceptionV3 with seeded weights whose activations neither vanish
+    nor blow up through its 94 convs: He-normal convs (torch's default
+    init shrinks each layer's variance about 6x, and pool3 of the default
+    net is a constant to 1e-6, its logits the classifier's bias) and BN
+    statistics and affines drawn near the identity."""
+    import torch.nn as nn
+
+    from aglayout_tpu_torch.eval.inception import InceptionV3
+
+    gen = torch.Generator().manual_seed(seed)
+    net = InceptionV3()
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * (2.0 / fan_in) ** 0.5)
+            elif isinstance(m, nn.BatchNorm2d):
+                c = m.num_features
+                m.running_mean.copy_(0.1 * torch.randn(c, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(c, generator=gen))
+                m.weight.copy_(1 + 0.1 * torch.randn(c, generator=gen))
+                m.bias.copy_(0.1 * torch.randn(c, generator=gen))
+            elif isinstance(m, nn.Linear):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) / m.in_features ** 0.5)
+    return net
+
+
+def layer_flops(net, x) -> int:
+    """The operations of `net` on one image of `x`: two a multiply-add of
+    each conv and linear layer (pools, BN and relu left out)."""
+    import torch.nn as nn
+
+    count = [0]
+
+    def hook(m, inputs, out):
+        count[0] += 2 * m.weight[0].numel() * out[0].numel()
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear))]
+    with torch.inference_mode():
+        net(x[:1])
+    for h in hooks:
+        h.remove()
+    return count[0]
+
+
+# the eval forward's outputs held kernels on against off: the three images,
+# the four crops tensors, mu and logvar
+FORWARD_KEYS = ("img_rec", "img_rand", "img_shift", "crops_input", "crops_input_rec",
+                "crops_rand", "crops_shift", "mu", "logvar")
+
+
+def phase_infer(smi: str):
+    """Inference, attribute editing and the evaluation report on the card,
+    the 128^2 model at its full width: (a) the eval forward, kernels on and
+    off, bf16 and f32; (b) small f32 eval forwards against the CPU; (c)
+    `run_inference`; (d) `python -m aglayout_tpu_torch.test`; (e) the
+    report with seeded InceptionV3 and LPIPS-AlexNet weights."""
+    import shutil
+    from pathlib import Path
+
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.eval.inception import load_inception, preprocess
+    from aglayout_tpu_torch.eval.lpips import AlexNetFeatures, distance_fn
+    from aglayout_tpu_torch.eval.report import evaluate_run
+    from aglayout_tpu_torch.infer.generate import eval_forward, run_inference
+    from aglayout_tpu_torch.models import build_discriminators, build_generator
+    from aglayout_tpu_torch.test import synthetic_loader
+    from aglayout_tpu_torch.train.loop import prepare_dirs
+    from aglayout_tpu_torch.train.state import Models, create_train_state
+    from aglayout_tpu_torch.utils.checkpoint import save_state
+    from aglayout_tpu_torch.utils.device import no_tf32
+
+    t0 = time.perf_counter()
+    per_forward = {k: 3 * n for k, n in PATH128.items()}  # the rec, rand and shift branches
+
+    # ---- (a) the eval forward at B=32, kernels on and off, bf16 and f32 (TF32 off)
+    fb = 32
+    for bf16 in (True, False):
+        label = "bf16" if bf16 else "f32 (TF32 off)"
+        set_tf32(bf16)
+        cfg = config_for(128, batch_size=fb, max_objects=O, bf16=bf16)
+        g = build_generator(cfg, "cuda", seed=0)
+        batch, z, eps = eval_batch(cfg, fb, 0, "cuda")
+
+        def fwd():
+            return eval_forward(g, batch, z, batch["attribute"], batch["attribute"], eps)
+
+        with torch.inference_mode():
+            set_kernels(g, True, cfg)
+            launch_counts(reset=True)
+            on = fwd()
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in launch_counts().items() if v}
+            set_kernels(g, False)
+            off = fwd()
+            torch.cuda.synchronize()
+            if {k: v for k, v in launch_counts().items() if v} != launches:
+                raise AssertionError("infer (a): a kernel launched with its switch off")
+            worst = {}
+            for k in FORWARD_KEYS:
+                if not torch.isfinite(on[k].float()).all() or on[k].shape != off[k].shape:
+                    raise AssertionError(f"infer (a): {k} non-finite or misshapen")
+                worst[k] = (errors(on[k], off[k])[1], mean_rel(on[k], off[k]))
+            times = {}
+            for key in ("on", "off", "off", "on", "on", "off"):
+                set_kernels(g, key == "on", cfg)
+                times.setdefault(key, []).append(cuda_ms(fwd, iters=5, warmup=2))
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        max_tol, mean_tol = (5e-2, 3e-2) if bf16 else (1e-4, None)
+        bad = {k: v for k, v in worst.items()
+               if v[0] > max_tol or (mean_tol is not None and v[1] > mean_tol)}
+        log(f"[infer] (a) eval forward 128^2 full width B={fb} {label}: launches {launches} "
+            f"(expected {per_forward}); kernels on vs off, max rel / mean rel: "
+            f"{ {k: (float(f'{a:.3e}'), float(f'{b:.3e}')) for k, (a, b) in worst.items()} } "
+            f"(tol {max_tol:.0e}{f', mean {mean_tol:.0e}' if mean_tol else ''}); "
+            f"{ms['on']:.3f} ms/forward kernels on, {ms['off']:.3f} off (CUDA events, 5 after "
+            f"2 warm-up, runs {times}) | {smi}")
+        if launches != per_forward or bad:
+            raise AssertionError(f"infer (a) {label}: launches {launches} or outputs {bad}")
+        del g, batch, on, off
+    set_tf32(True)
+
+    # ---- (b) small f32 eval forwards on the card, kernels on, against the CPU
+    set_tf32(False)
+    for size, path in ((64, PATH64), (128, PATH128)):
+        cfg = config_for(size, conv_dim=16, clstm_layers=2, resi_num=2, num_classes=23,
+                         max_objects=4)
+        batch, z, eps = eval_batch(cfg, 2, 1, "cpu")
+        with torch.inference_mode():
+            want = eval_forward(build_generator(cfg, "cpu", seed=1), batch, z, batch["attribute"],
+                                batch["attribute"], eps)
+            launch_counts(reset=True)
+            dev = {k: v.cuda() for k, v in batch.items()}
+            got = eval_forward(build_generator(cfg, "cuda", seed=1), dev, z.cuda(),
+                               dev["attribute"], dev["attribute"], eps.cuda())
+            torch.cuda.synchronize()
+        launches = {k: v for k, v in launch_counts().items() if v}
+        rel = max(errors(got[k].cpu(), want[k])[1] for k in want)
+        log(f"[infer] (b) eval forward {size}^2 conv_dim=16 f32, card vs CPU: max rel {rel:.3e} "
+            f"over the 11 outputs (tol 1e-4); launches {launches}")
+        if rel > 1e-4 or launches != {k: 3 * n for k, n in path.items()}:
+            raise AssertionError(f"infer (b) {size}: the card disagrees with the CPU or launches")
+    set_tf32(True)
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_infer"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        # ---- (c) run_inference, 128^2, B=8, 3 batches, f32 (the entry's default) and bf16
+        ib, nb = 8, 3
+        models = {}
+        for bf16 in (False, True):
+            label = "bf16" if bf16 else "f32"
+            cfg = config_for(128, batch_size=ib, max_objects=O, bf16=bf16)
+            m = Models(build_generator(cfg, "cuda", seed=0),
+                       *build_discriminators(cfg, "cuda", seed=1))
+            out = root / f"infer_{label}"
+            run_inference(cfg, m, synthetic_loader(cfg), str(out / "warm"), device="cuda",
+                          max_batches=1)  # warm-up
+            torch.cuda.synchronize()
+            launch_counts(reset=True)
+            t1 = time.perf_counter()
+            summary = run_inference(cfg, m, synthetic_loader(cfg), str(out / "run"),
+                                    device="cuda", max_batches=nb)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) / nb * 1e3
+            launches = {k: v for k, v in launch_counts().items() if v}
+            t1 = time.perf_counter()
+            run_inference(cfg, m, synthetic_loader(cfg), str(out / "bare"), device="cuda",
+                          max_batches=nb, save_images=False)
+            torch.cuda.synchronize()
+            bare_ms = (time.perf_counter() - t1) / nb * 1e3
+            batch, z, eps = eval_batch(cfg, ib, 0, "cuda")
+            with torch.inference_mode():
+                fwd_ms = cuda_ms(lambda: eval_forward(m.g.eval(), batch, z, batch["attribute"],
+                                                      batch["attribute"], eps), iters=5, warmup=2)
+            pngs = sorted(p.name for p in (out / "run").iterdir())
+            plain = [p for p in pngs if "modified" not in p]
+            modified = len(pngs) - len(plain)
+            finite = all(np.isfinite(v) for v in summary.values())
+            log(f"[infer] (c) run_inference 128^2 full width B={ib} {label}, {nb} batches: "
+                f"{ms:.1f} ms/batch (host clock after the card synchronises, PNGs written), "
+                f"{bare_ms:.1f} without PNGs, of which two eval forwards {2 * fwd_ms:.1f} "
+                f"(CUDA events, {fwd_ms:.3f} ms each); "
+                f"summary {summary}; {len(plain)} PNGs + {modified} _modified; launches "
+                f"{launches} | {smi}")
+            if (set(summary) != SUMMARY_KEYS or not finite or len(plain) != 4 * ib * nb
+                    or modified % 3 or launches != {k: 6 * nb * n for k, n in PATH128.items()}):
+                raise AssertionError(f"infer (c) {label}: summary, PNGs or launches off")
+            models[label] = (cfg, m)
+
+        # ---- (d) the entry point, from a checkpoint this phase saves
+        cfg = config_for(128, batch_size=ib, path=str(root / "d"))
+        state = create_train_state(cfg, "cuda", seed=0)
+        ckpt = save_state(prepare_dirs(cfg)["models"], 5, state)
+        del state
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "aglayout_tpu_torch.test", "--synthetic", "--image_size",
+             "128", "--max_batches", "2", "--path", str(root / "d")],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+        text = proc.stdout
+        summary = json.loads(text[text.index("{"):]) if "{" in text else None
+        log(f"[infer] (d) python -m aglayout_tpu_torch.test --synthetic --image_size 128 "
+            f"--max_batches 2: rc {proc.returncode} in {time.perf_counter() - t1:.1f} s from a "
+            f"{os.path.getsize(ckpt) / 1e6:.1f} MB checkpoint; "
+            f"'{text.splitlines()[0] if text else ''}'; summary {summary}")
+        if proc.returncode != 0 or summary is None or set(summary) != SUMMARY_KEYS:
+            raise AssertionError(f"infer (d): the entry point failed: {proc.stderr[-2000:]}")
+
+        # ---- (e) the report with seeded InceptionV3 and LPIPS-AlexNet weights
+        torch.manual_seed(0)
+        weights = {k: str(root / f"{k}.pth") for k in ("inception", "alexnet", "lpips")}
+        torch.save(seeded_inception(0).state_dict(), weights["inception"])
+        torch.save(AlexNetFeatures().state_dict(), weights["alexnet"])
+        torch.save({f"lin{i}.model.1.weight": torch.rand(1, c, 1, 1)
+                    for i, c in enumerate((64, 192, 384, 256, 256))}, weights["lpips"])
+        cfg, m = models["f32"]
+        t1 = time.perf_counter()
+        report = evaluate_run(cfg, m, lambda: synthetic_loader(cfg), str(root / "report"),
+                              device="cuda", max_batches=2, inception_weights=weights["inception"],
+                              alexnet_weights=weights["alexnet"],
+                              lpips_weights=weights["lpips"])
+        report_s = time.perf_counter() - t1
+        flat = [v for sec in report.values() for v in sec.values()
+                if isinstance(v, (int, float)) and not isinstance(v, bool)]
+        names = (report["fid"]["extractor"], report["inception_score"]["classifier"],
+                 report["lpips_diversity"]["backbone"])
+        log(f"[infer] (e) evaluate_run 128^2 B={ib}, 2 batches, seeded InceptionV3 and "
+            f"LPIPS-AlexNet: {report_s:.1f} s; {json.dumps(report)}")
+        if (not all(np.isfinite(flat)) or any("not comparable" in n for n in names)
+                or names != ("inception-v3 pool3 (pytorch-fid weights)", "inception-v3 logits",
+                             "lpips-v0.1-alexnet")):
+            raise AssertionError(f"infer (e): non-finite report or a stand-in network: {names}")
+        # InceptionV3 on the card (f32, TF32 off) against the CPU on 4 images
+        imgs = np.random.RandomState(3).randint(0, 256, (4, 128, 128, 3)).astype(np.uint8)
+        cpu_net = load_inception(weights["inception"], device="cpu")
+        gpu_net = load_inception(weights["inception"], device="cuda")
+        with torch.inference_mode(), no_tf32():
+            want = cpu_net(preprocess(imgs, device="cpu"), True)
+            got = gpu_net(preprocess(imgs, device="cuda"), True)
+            rels = [errors(a.cpu(), b)[1] for a, b in zip(got, want)]
+            x = preprocess(np.random.RandomState(4).randint(0, 256, (64, 128, 128, 3)),
+                           device="cuda")
+            inc_ms = cuda_ms(lambda: gpu_net(x), iters=5, warmup=2)
+            dist, _ = distance_fn(weights["alexnet"], weights["lpips"], device="cuda")
+            u = torch.rand(2, 64, 128, 128, 3, device="cuda") * 2 - 1
+            lp_ms = cuda_ms(lambda: dist(u[0], u[1]), iters=10, warmup=2)
+        flops = layer_flops(cpu_net, preprocess(imgs[:1], device="cpu"))
+        rate = flops * 64e3 / inc_ms
+        log(f"[infer] (e) InceptionV3 f32 (TF32 off), card vs CPU on 4 images: pool3 max rel "
+            f"{rels[0]:.3e}, logits {rels[1]:.3e} (tol 1e-4); {64e3 / inc_ms:.1f} images/s at "
+            f"299^2 ({inc_ms:.3f} ms a batch of 64; {flops / 1e9:.3f} GFLOP an image, two a "
+            f"multiply-add: {rate / 1e12:.2f} TFLOP/s, {100 * rate / F32:.1f} % of the f32 "
+            f"peak); LPIPS-AlexNet {64e3 / lp_ms:.1f} pairs/s at "
+            f"128^2 ({lp_ms:.3f} ms a batch of 64 pairs) (CUDA events) | {smi}")
+        if max(rels) > 1e-4:
+            raise AssertionError("infer (e): InceptionV3 on the card disagrees with the CPU")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[infer] phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1550,6 +1855,7 @@ def main() -> int:
     phase_discriminators(smi)
     phase_train(smi)
     phase_trainer(smi)
+    phase_infer(smi)
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))

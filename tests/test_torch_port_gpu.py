@@ -7,6 +7,7 @@ one. The file imports no JAX, so it runs where only PyTorch is installed:
 (`--noconftest`: the suite's conftest sets up JAX).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1084,3 +1085,70 @@ def test_restored_generator_serves_through_the_128_path(cuda, tmp_path):
     torch.cuda.synchronize()
     assert {k: v for k, v in launch_counts().items() if v} == PATH128
     assert torch.equal(img, state.models.g.eval().generate(*ins))
+
+
+# ---- inference and the evaluation networks (the infer and eval slice)
+
+def _eval_case(size, device, seed=1):
+    """A small f32 model's eval-forward inputs and outputs on `device`."""
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch, synthetic_batch
+    from aglayout_tpu_torch.infer.generate import eval_forward
+
+    cfg = config_for(size, conv_dim=16, clstm_layers=2, resi_num=2, num_classes=23, max_objects=4)
+    batch = batch_to_torch(
+        synthetic_batch(np.random.RandomState(seed), 2, 4, size, 23, cfg.attribute_dim), device)
+    g = torch.Generator().manual_seed(seed)
+    z = torch.randn(2, 4, cfg.z_dim, generator=g).to(device)
+    eps = torch.randn(8, cfg.z_dim, generator=g).to(device)
+    with torch.inference_mode():
+        return eval_forward(build_generator(cfg, device, seed=seed), batch, z, batch["attribute"],
+                            batch["attribute"], eps)
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_eval_forward_on_card_matches_cpu(cuda, size):
+    """The eval-mode forward, kernels on, on the card against the CPU: each
+    of K1-K5 (K1, K2 at 64^2) three times, once a branch, f32 1e-4."""
+    from chip_smoke import PATH64, PATH128, launch_counts
+
+    launch_counts(reset=True)
+    got = _eval_case(size, cuda)
+    torch.cuda.synchronize()
+    path = PATH64 if size == 64 else PATH128
+    assert {k: v for k, v in launch_counts().items() if v} == {k: 3 * n for k, n in path.items()}
+    want = _eval_case(size, "cpu")
+    for k, w in want.items():
+        assert _rel(got[k].cpu(), w) < 1e-4, k
+
+
+def test_inception_on_card_matches_cpu(cuda, tmp_path):
+    """InceptionV3 pool3 and logits, f32 with TF32 off, card against CPU."""
+    from chip_smoke import seeded_inception
+    from aglayout_tpu_torch.eval.inception import InceptionExtractor
+
+    torch.save(seeded_inception(0).state_dict(), tmp_path / "inc.pth")
+    imgs = np.random.RandomState(3).randint(0, 256, (4, 128, 128, 3)).astype("uint8")
+    for fn in ("__call__", "logits"):
+        got = getattr(InceptionExtractor(str(tmp_path / "inc.pth"), device=cuda), fn)(imgs)
+        want = getattr(InceptionExtractor(str(tmp_path / "inc.pth"), device="cpu"), fn)(imgs)
+        assert _rel(torch.from_numpy(got), torch.from_numpy(want)) < 1e-4, fn
+
+
+def test_run_inference_on_card_launches_six_each(cuda, tmp_path):
+    """run_inference at 128^2 on the card: two eval forwards a batch, so
+    each of K1-K5 six times a batch; the summary has JAX's keys."""
+    from chip_smoke import PATH128, SUMMARY_KEYS, launch_counts
+    from aglayout_tpu_torch.infer.generate import run_inference
+    from aglayout_tpu_torch.test import synthetic_loader
+    from aglayout_tpu_torch.train.state import Models
+
+    cfg = config_for(128, conv_dim=16, clstm_layers=2, resi_num=2, num_classes=23,
+                     d_conv_dim=16, batch_size=2, max_objects=4)
+    models = Models(build_generator(cfg, cuda, seed=0), *build_discriminators(cfg, cuda, seed=1))
+    launch_counts(reset=True)
+    summary = run_inference(cfg, models, synthetic_loader(cfg), str(tmp_path), device=cuda,
+                            max_batches=2)
+    torch.cuda.synchronize()
+    assert set(summary) == SUMMARY_KEYS
+    assert {k: v for k, v in launch_counts().items() if v} == {k: 12 * n for k, n in PATH128.items()}
+    assert len([p for p in tmp_path.iterdir() if "modified" not in p.name]) == 4 * 2 * 2

@@ -9,6 +9,8 @@ into the JAX trees by the JAX package's own importer, `import_generator`.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -165,6 +167,44 @@ def jax_train_state(models, jcfg, seed: int = 0):
     return jmodels, state
 
 
+def redraw_weights(module, seed: int, gain: float = 1.5):
+    """Redraw every conv and linear weight of `module` normal with variance
+    gain / fan_in. torch's default initialisers shrink each layer's
+    variance about 3x, so that a deep net's output hardly depends on its
+    input (the small generator's images move by 1e-4 with z); at gain 1.5
+    its images have a std of about 0.7 and z moves them by about 0.4."""
+    import torch.nn as nn
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                fan_in = m.weight[0].numel()
+            elif isinstance(m, nn.ConvTranspose2d):  # stride 2: a quarter of the taps an output
+                fan_in = m.weight.shape[0] * m.weight[0, 0].numel() / 4
+            else:
+                continue
+            m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * (gain / fan_in) ** 0.5)
+    return module
+
+
+def eval_models_pair(cfg, jcfg, seed: int = 0):
+    """(the port's `Models` on the CPU, JAX's models, JAX's train state) with
+    the same seeded weights, for the test-time drivers: the generator's
+    redrawn (`redraw_weights`) so that its images depend on z and the
+    layout. The attribute D's u and v are those after one power iteration,
+    as a trained or checkpointed D holds them (freshly drawn ones make
+    sigma = u^T W v a sum that cancels, which two f32 implementations round
+    7e-5 apart)."""
+    from aglayout_tpu_torch.train.state import create_train_state
+
+    models = create_train_state(cfg, "cpu", seed=seed).models
+    redraw_weights(models.g, seed)
+    with torch.no_grad():
+        models.d_att(torch.randn(4, 3, 32, 32, generator=torch.Generator().manual_seed(0)), True)
+    return (models, *jax_train_state(models, jcfg))
+
+
 def jax_eps(jmodels, params, stats, batch, z, rng):
     """The reparametrisation draw of the first CropEncoder call of the JAX
     generator's train forward under `rng`, (B*O, z_dim): from that call's
@@ -183,6 +223,53 @@ def jax_eps(jmodels, params, stats, batch, z, rng):
     )
     zz, mu, logvar = state["intermediates"]["crop_encoder"]["__call__"][0]
     return (zz - mu) / jnp.exp(logvar / 2)
+
+
+def jax_eval_forward(jgenerator, variables, args, key):
+    """JAX's eval forward on the generator's ten positional `args` under the
+    reparametrisation key `key`, and the draw of its first CropEncoder call,
+    eps = (z - mu) / exp(logvar / 2), captured: (outputs, eps)."""
+    import jax.numpy as jnp
+
+    from aglayout_tpu.models.generator import CropEncoder
+
+    out, st = jgenerator.apply(variables, *args, train=False, rngs={"reparam": key},
+                               mutable=["intermediates"],
+                               capture_intermediates=lambda mdl, method: isinstance(mdl, CropEncoder))
+    z, mu, logvar = st["intermediates"]["crop_encoder"]["__call__"][0]
+    return out, (z - mu) / jnp.exp(logvar / 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _jitted_eval_forward(jgenerator):
+    import jax
+
+    return jax.jit(functools.partial(jax_eval_forward, jgenerator))
+
+
+def jax_eval_draws(jmodels, jstate, batches, z_dim: int, seed: int, order):
+    """The draws of a JAX test-time driver over `batches`, as numpy, one dict
+    a batch, for the port's `draws=`: from PRNGKey(seed), each batch splits
+    the running key into itself and one key a name of `order`, as the
+    driver splits it; a "z..." name is the normal (B, O, z_dim) its key
+    draws, an "eps..." name the reparametrisation draw of an eval forward
+    under its key (which depends on the key and the shapes only)."""
+    import jax
+    import jax.numpy as jnp
+
+    g_vars = {"params": jstate.g.params, "batch_stats": jstate.g.stats}
+    capture = _jitted_eval_forward(jmodels.generator)
+    key, draws = jax.random.PRNGKey(seed), []
+    for batch in batches:
+        key, *keys = jax.random.split(key, 1 + len(order))
+        b, o = batch["objs"].shape
+        args = tuple(jnp.asarray(batch[k]) for k in ("imgs", "objs", "boxes", "masks", "valid"))
+        args += (jnp.zeros((b, o, z_dim)),) + tuple(
+            jnp.asarray(batch[k]) for k in ("attribute", "masks_shift", "boxes_shift", "attribute"))
+        draws.append({name: np.array(jax.random.normal(k, (b, o, z_dim)) if name.startswith("z")
+                                     else capture(g_vars, args, k)[1])
+                      for name, k in zip(order, keys)})
+    return draws
 
 
 def jax_step_draws(jstate, jmodels, jcfg, batch, matrix, eps_fn):
