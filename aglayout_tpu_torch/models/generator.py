@@ -63,6 +63,7 @@ from aglayout_tpu_torch.ops.typed_expand import (
     typed_c3_expand_plain,
     typed_c3_inputs_from_windows,
 )
+from aglayout_tpu_torch.parallel import mesh
 
 SIZES = (64, 128)  # the reference's two generators (train64.py, train128.py)
 
@@ -291,9 +292,14 @@ class LayoutEncoder(nn.Module):
             area = ((r1 - r0).clamp(min=0.0) * (c1 - c0).clamp(min=0.0)).reshape(b * o)
             w = valid.reshape(b * o).float()
             cnt = w.sum() * float(in_size * in_size)
-            mean = ((w * area)[:, None] * wvf).sum(0) / cnt
-            ex2 = ((w * area)[:, None] * wvf * wvf).sum(0) / cnt
-            a, bb = self.bn1.train_affine(objs.reshape(-1), mean, ex2 - mean * mean, cnt)
+            wa = (w * area)[:, None]
+            grp = mesh.active()
+            if grp is None:
+                mean = (wa * wvf).sum(0) / cnt
+                var = (wa * wvf * wvf).sum(0) / cnt - mean * mean
+            else:  # the global batch's moments in a sharded step
+                mean, var, cnt = grp.moments((wa * wvf).sum(0), (wa * wvf * wvf).sum(0), cnt)
+            a, bb = self.bn1.train_affine(objs.reshape(-1), mean, var, cnt)
         else:
             a, bb = self.bn1.eval_affine(objs.reshape(-1))
         a = a.view(b, o, -1).to(dt)

@@ -10,7 +10,9 @@ over every axis but the channels, and over the valid rows only where a
 row mask is given (the dense (B, O_max) object layout pads its rows);
 var = E[x^2] - E[x]^2, biased, normalises, and the running statistics
 take the unbiased var at momentum 0.1, as torch's BatchNorm and JAX's
-`MaskedBatchNorm` do.
+`MaskedBatchNorm` do. Inside a sharded train step (`parallel/mesh.py`)
+the moments and the count are the global batch's, all-reduced over the
+ranks.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from aglayout_tpu_torch.ops.spade_conv import class_expand, compact_to_flat
+from aglayout_tpu_torch.parallel import mesh
 
 
 class MaskedBatchNorm(nn.Module):
@@ -71,8 +74,17 @@ class MaskedBatchNorm(nn.Module):
 
     def _batch_moments(self, xf, mask):
         """(mean, biased var, count a channel) of f32 x over every axis but
-        1, over the rows where `mask` (N,) is non-zero when given."""
+        1, over the rows where `mask` (N,) is non-zero when given; over the
+        global batch inside a sharded step."""
         dims = (0,) + tuple(range(2, xf.ndim))
+        grp = mesh.active()
+        if grp is not None:
+            if mask is None:
+                cnt = float(xf.numel() // xf.shape[1])
+                return grp.moments(xf.sum(dims), (xf * xf).sum(dims), cnt)
+            m = mask.float().view((-1,) + (1,) * (xf.ndim - 1))
+            cnt = m.sum() * float(xf[0, 0].numel())
+            return grp.moments((xf * m).sum(dims), (xf * xf * m).sum(dims), cnt)
         if mask is None:
             cnt = float(xf.numel() // xf.shape[1])
             mean, mean2 = xf.mean(dims), (xf * xf).mean(dims)

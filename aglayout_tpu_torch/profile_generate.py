@@ -3,7 +3,7 @@ and kernel by kernel, on one CUDA card:
 
     python3 -m aglayout_tpu_torch.profile_generate [--image_size 64|128] [--off] [--batches 5]
         [--int8] [--typed_c3 v4|v5|v6]
-    python3 -m aglayout_tpu_torch.profile_generate --train_step [B] [--f32] [--batches 5]
+    python3 -m aglayout_tpu_torch.profile_generate --train_step [B] [--f32] [--batches 5] [--group]
 
 The full-width generator (128^2 by default; B = 128, O = 10, bf16, seeded
 weights, the serving bench's layouts), the hand-written kernels on (or,
@@ -28,7 +28,16 @@ With `--train_step [B]` (B=8 when not given) the second pass profiles
 `--batches` steps of `train/step.py` on the bench's synthetic batch (bf16,
 or with `--f32` f32 with TF32 off; the models in training mode, no kernel
 of the port) after two warm-up steps: launches, device busy time and its
-share of each step.
+share of each step. With `--group` the same step runs also sharded in an
+NCCL group of one rank (`parallel.make_sharded_train_step`; the process
+joins it itself), each profiled in turns with the plain one: what the
+collectives cost a step before a second card shares the work.
+
+Each pass also counts the CUDA runtime calls that make the host wait for
+the card (`cudaStreamSynchronize`, `cudaDeviceSynchronize`,
+`cudaEventSynchronize`, and the copies `cudaMemcpy*`, which wait where
+they copy from pageable host memory), with their host time, and lists the
+host operations that take the most host time of their own.
 """
 
 from __future__ import annotations
@@ -123,7 +132,7 @@ def profiled(fn, batches: int):
     plain_ms = event_ms(fn, batches)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         traced_ms = event_ms(fn, batches)
-    kernels = {}
+    kernels, waits = {}, {}
     launches = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
@@ -131,23 +140,33 @@ def profiled(fn, batches: int):
             us = getattr(ev, "device_time_total", None)  # cuda_time_total in older PyTorch
             us = ev.cuda_time_total if us is None else us
             kernels[ev.name] = kernels.get(ev.name, 0.0) + us / 1e3
+        elif ev.name.startswith("cuda") and ("Synchronize" in ev.name or "Memcpy" in ev.name):
+            n, ms = waits.get(ev.name, (0, 0.0))
+            waits[ev.name] = (n + 1, ms + ev.cpu_time_total / 1e3)
     busy = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:25]
+    host = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)[:15]
     return (launches / batches, busy / batches, plain_ms, traced_ms,
-            [(name, ms / batches) for name, ms in top])
+            [(name, ms / batches) for name, ms in top],
+            {name: (n / batches, ms / batches) for name, (n, ms) in waits.items()},
+            [(a.key, a.count / batches, a.self_cpu_time_total / 1e3 / batches) for a in host])
 
 
 def report(tag: str, what: str, batches: int, profile) -> None:
     """The busy share is the kernels' time over the call's time without
     the profiler, whose own host work stretches the calls it traces."""
-    launches, busy, plain_ms, traced_ms, top = profile
+    launches, busy, plain_ms, traced_ms, top, waits, host = profile
     plural = {"batch": "batches", "step": "steps"}[what]
     print(f"{tag}: free-running, {batches} {plural}: {launches:.0f} launches a {what}, device "
           f"busy {busy:.3f} ms a {what}; {plain_ms:.3f} ms a {what} by CUDA events without the "
           f"profiler, busy share {busy / plain_ms:.2f}; {traced_ms:.3f} ms under it "
-          f"(busy share {busy / traced_ms:.2f})", flush=True)
+          f"(busy share {busy / traced_ms:.2f}); host waits a {what} (calls, host ms): "
+          f"{ {k: (round(n, 1), round(ms, 3)) for k, (n, ms) in waits.items()} }", flush=True)
     for name, ms in top:
         print(f"[profile]   {ms:8.3f} ms  {name[:110]}", flush=True)
+    print(f"{tag}: host ops by their own host time a {what} (under the profiler):", flush=True)
+    for name, n, ms in host:
+        print(f"[profile host] {ms:8.3f} ms {n:7.1f} calls  {name[:100]}", flush=True)
 
 
 def train_step_profile(args, smi: str) -> None:
@@ -155,6 +174,7 @@ def train_step_profile(args, smi: str) -> None:
     from aglayout_tpu_torch.bench import train_inputs
     from aglayout_tpu_torch.config import config_for
     from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.parallel import make_sharded_train_step
     from aglayout_tpu_torch.train.state import create_train_state
     from aglayout_tpu_torch.train.step import make_train_step
 
@@ -164,13 +184,36 @@ def train_step_profile(args, smi: str) -> None:
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     batch, matrix, pos_weight = train_inputs(cfg, b)
     batch = batch_to_torch(batch, "cuda")
-    state = create_train_state(cfg, "cuda", seed=0)
-    step = make_train_step(cfg, state.models, matrix, pos_weight)
-    for _ in range(2):
-        step(state, batch)
+    runs = {}
+    for name in ("plain", "group") if args.group else ("plain",):
+        state = create_train_state(cfg, "cuda", seed=0)
+        step = make_train_step(cfg, state.models, matrix, pos_weight)
+        if name == "group":
+            step = make_sharded_train_step(step, nccl_group_of_one())
+        for _ in range(2):
+            step(state, batch)
+        runs[name] = (step, state)
     tag = (f"[profile] train step {args.image_size}^2 B={b} "
            f"{'f32 (TF32 off)' if args.f32 else 'bf16'}, {smi}")
-    report(tag, "step", args.batches, profiled(lambda: step(state, batch), args.batches))
+    for name in ("plain", "group", "group", "plain") if args.group else ("plain",):
+        step, state = runs[name]
+        report(f"{tag}, {name}" if args.group else tag, "step", args.batches,
+               profiled(lambda: step(state, batch), args.batches))
+
+
+def nccl_group_of_one():
+    """This process as the one rank of an NCCL group on localhost."""
+    import os
+    import socket
+
+    from aglayout_tpu_torch.parallel import maybe_init_distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    os.environ.update(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0", MASTER_ADDR="localhost",
+                      MASTER_PORT=str(port))
+    return maybe_init_distributed("cuda")
 
 
 def main() -> int:
@@ -189,6 +232,8 @@ def main() -> int:
     ap.add_argument("--train_step", type=int, nargs="?", const=8, default=None, metavar="B",
                     help="profile the GAN train step at batch B (default 8) instead")
     ap.add_argument("--f32", action="store_true", help="with --train_step: f32 models, TF32 off")
+    ap.add_argument("--group", action="store_true",
+                    help="with --train_step: also the step sharded in an NCCL group of one")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_generate: needs a CUDA card")

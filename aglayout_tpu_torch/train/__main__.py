@@ -3,12 +3,16 @@
   python -m aglayout_tpu_torch.train --image_size 64    # reference train64.py
   python -m aglayout_tpu_torch.train --image_size 128   # reference train128.py
   python -m aglayout_tpu_torch.train --synthetic --device cpu --niter 2   # a host smoke run
+  python -m torch.distributed.run --nproc_per_node 4 -m aglayout_tpu_torch.train ...  # 4 GPUs
 
 One flag per `Config` field, as `train.py` has them, plus `--device`: the
 run is on the CUDA card unless `--device cpu` is given, and raises where
 there is no card. `--synthetic` trains on the seeded `synthetic_batch`
 stream instead of the Visual Genome corpus under `--vg_dir`; `--profile DIR`
-traces at most 20 steps with `torch.profiler` into DIR/trace.json.
+traces at most 20 steps with `torch.profiler` into DIR/trace.json. Under
+`python -m torch.distributed.run` each process joins the launcher's group
+(NCCL on the card, gloo with `--device cpu`) and the run is data-parallel,
+`--batch_size` being the global batch; rank 0 prints and writes.
 """
 
 import argparse
@@ -65,18 +69,27 @@ def synthetic_stream(cfg: Config):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
-    print(cfg, flush=True)
-    loader = synthetic_stream(cfg) if args.synthetic else None
 
+    from aglayout_tpu_torch.parallel import maybe_init_distributed
     from aglayout_tpu_torch.train.loop import train
 
-    if args.profile:
-        from aglayout_tpu_torch.utils.profiling import trace
+    group = maybe_init_distributed(args.device)
+    if group is None or group.rank == 0:
+        print(cfg, flush=True)
+    loader = synthetic_stream(cfg) if args.synthetic else None
+    try:
+        if args.profile:
+            from aglayout_tpu_torch.utils.profiling import trace
 
-        with trace(args.profile):
-            return train(cfg, loader=loader, niter=min(cfg.niter, 20),
-                         use_tensorboard=args.use_tensorboard, device=args.device)
-    return train(cfg, loader=loader, use_tensorboard=args.use_tensorboard, device=args.device)
+            with trace(args.profile):
+                return train(cfg, loader=loader, niter=min(cfg.niter, 20),
+                             use_tensorboard=args.use_tensorboard, device=args.device)
+        return train(cfg, loader=loader, use_tensorboard=args.use_tensorboard, device=args.device)
+    finally:
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

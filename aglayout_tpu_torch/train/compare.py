@@ -7,8 +7,9 @@ lr g / (|g| + eps): about +-lr, so a gradient whose sign differs between
 the two runs moves the param by about 2 lr, and one whose sign agrees by
 the same amount to within lr eps / |g|.
 
-`state_mismatches` holds two whole train states against each other (a
-checkpoint's round trip).
+`step_errors` holds two steps' results against each other (the card
+against the CPU, a sharded step against one process), `state_mismatches`
+two whole train states (a checkpoint's round trip, two ranks' replicas).
 """
 
 from __future__ import annotations
@@ -63,24 +64,51 @@ def run_step(cfg: Config, device, draws: dict | None = None, seed: int = 0):
     return step(state, batch_to_torch(batch, device), draws=draws)
 
 
-def compare_steps(cfg: Config, devices, draws: dict) -> dict:
-    """`run_step` on each of two devices, the first the reference: the
-    metrics' largest relative difference ("metrics"), the params' largest
-    difference where `adam_sure` ("params_sure") and anywhere
-    ("params_any"), and that bound, 2 lr ("params_any_tol")."""
-    (s_ref, m_ref), (s_got, m_got) = (run_step(cfg, d, draws) for d in devices)
+def step_errors(ref, got, lr: float) -> dict:
+    """ref, got: (state, metrics) after one step each from the same state,
+    batch and draws, ref the reference: the metrics' largest relative
+    difference ("metrics"), the gradients' largest relative L2 difference
+    over the tensors but the rounding-noise ones ("grads"), the params' largest difference where
+    `adam_sure` ("params_sure") and anywhere ("params_any"), that bound, 2
+    lr ("params_any_tol"), the BN running statistics' and spectral-norm
+    vectors' largest difference over their tensor's max |.|, at least 1
+    ("stats"), and the grids' largest difference in levels ("grids")."""
+    (s_ref, m_ref), (s_got, m_got) = ref, got
     metrics = max(abs(m_got[k].item() - m_ref[k].item()) / abs(m_ref[k].item())
                   for k in m_ref if k != "images")
-    got = params_and_grads(s_got)
-    sure = anywhere = 0.0
-    for key, (p, g) in params_and_grads(s_ref).items():
-        q, gq = got[key]
+    grids = max((m_got["images"][k].cpu().int() - v.cpu().int()).abs().max().item()
+                for k, v in m_ref["images"].items())
+    ref_pg, got_pg = params_and_grads(s_ref), params_and_grads(s_got)
+    top = {}
+    for key, (_, g) in ref_pg.items():
+        net = key.split(".")[0]
+        top[net] = max(top.get(net, 0.0), g.abs().max().item())
+    sure = anywhere = grads = 0.0
+    for key, (p, g) in ref_pg.items():
+        q, gq = got_pg[key]
         diff = (q - p).abs()
-        mask = adam_sure(g, gq, cfg.learning_rate)
+        mask = adam_sure(g, gq, lr)
         sure = max(sure, diff[mask].max().item() if mask.any() else 0.0)
         anywhere = max(anywhere, diff.max().item())
-    return {"metrics": metrics, "params_sure": sure, "params_any": anywhere,
-            "params_any_tol": 2 * cfg.learning_rate}
+        # a gradient below 1e-6 of its net's largest is rounding noise (a
+        # bias before a batch-statistics BN, zero in exact arithmetic)
+        if g.abs().max().item() >= 1e-6 * top[key.split(".")[0]]:
+            grads = max(grads, ((gq - g).norm() / g.norm()).item())
+    stats = 0.0
+    for name, m in s_ref.models.items():
+        other = getattr(s_got.models, name).state_dict()
+        for key, v in m.state_dict().items():
+            if key.endswith(("running_mean", "running_var", "weight_u", "weight_v")):
+                err = (other[key].cpu() - v.cpu()).abs().max().item()
+                stats = max(stats, err / max(1.0, v.abs().max().item()))
+    return {"metrics": metrics, "grads": grads, "params_sure": sure, "params_any": anywhere,
+            "params_any_tol": 2 * lr, "stats": stats, "grids": grids}
+
+
+def compare_steps(cfg: Config, devices, draws: dict) -> dict:
+    """`run_step` on each of two devices, the first the reference:
+    `step_errors` of the second against the first."""
+    return step_errors(*(run_step(cfg, d, draws) for d in devices), cfg.learning_rate)
 
 
 def state_mismatches(a, b) -> list:

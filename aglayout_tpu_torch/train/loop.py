@@ -3,8 +3,13 @@
 Port of `aglayout_tpu/train/loop.py` (the reference's train64.py and
 train128.py, one binary, the resolution set by the config). Artifact
 directories follow the reference's exp_name convention (train64.py:69-79):
-{path}/all/{logs,models,samples,results}/{exp_name}. One device: data
-parallelism is not ported yet.
+{path}/all/{logs,models,samples,results}/{exp_name}. Under `python -m
+torch.distributed.run` (a process group joined by
+`parallel.maybe_init_distributed`) the loop trains data-parallel: every
+rank restores the same checkpoint and reads the same global batch, moves
+its rows to its device and runs the sharded step; rank 0 alone writes the
+log, TensorBoard and checkpoints, and the ranks agree each step whether a
+preemption signal came, so that all save and stop at the same step.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from aglayout_tpu_torch.config import Config
 from aglayout_tpu_torch.data.synthetic import batch_to_torch
 from aglayout_tpu_torch.data.vocab import attribute_pos_weight
+from aglayout_tpu_torch.parallel import Group, make_sharded_train_step
 from aglayout_tpu_torch.train.state import create_train_state
 from aglayout_tpu_torch.train.step import make_train_step
 from aglayout_tpu_torch.utils.checkpoint import restore_state, save_state
@@ -109,10 +115,19 @@ def train(cfg: Config, loader=None, niter: int | None = None, use_tensorboard: b
     the Visual Genome pipeline (`data/dataset.get_dataloaders`, which also
     sets `cfg.num_classes` from the vocab); any iterator of numpy batches in
     JAX's layout will do (the synthetic stream). If `window_rates` is a
-    list, each log window's steps/s is appended to it."""
-    if cfg.num_devices > 1:
-        raise NotImplementedError("train: one device only; data parallelism is not ported yet")
+    list, each log window's steps/s is appended to it. In a process group
+    (`parallel.maybe_init_distributed`) it trains data-parallel over all
+    its ranks, `cfg.batch_size` being the global batch."""
+    group = Group()
+    if cfg.num_devices not in (0, group.size):
+        raise ValueError(
+            f"train: num_devices={cfg.num_devices}, but this process group has {group.size} "
+            "rank(s) (0 takes them all); launch one process a device with `python -m "
+            "torch.distributed.run --nproc_per_node N -m aglayout_tpu_torch.train ...`")
     device = require(device, "train")
+    if group.on and device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    lead = group.rank == 0  # writes the log, TensorBoard and checkpoints
     dirs = prepare_dirs(cfg)
 
     if loader is None:
@@ -128,8 +143,10 @@ def train(cfg: Config, loader=None, niter: int | None = None, use_tensorboard: b
     state = create_train_state(cfg, device, seed=cfg.seed)
     state, start = restore_state(dirs["models"], state, cfg.resume)
     step_fn = make_step(cfg, state)
+    if group.on:
+        step_fn = make_sharded_train_step(step_fn, group)
 
-    logger = MetricLogger(dirs["logs"], use_tensorboard)
+    logger = MetricLogger(dirs["logs"] if lead else None, use_tensorboard)
     niter = niter or cfg.niter
     it = iter(loader)
     metrics = {}
@@ -138,7 +155,7 @@ def train(cfg: Config, loader=None, niter: int | None = None, use_tensorboard: b
     drop = ("masks", "masks_shift") if cfg.device_masks else ()
 
     def prep(b):
-        return batch_to_torch({k: v for k, v in b.items() if k not in drop}, device)
+        return batch_to_torch(group.rows({k: v for k, v in b.items() if k not in drop}), device)
 
     # Preemption save (the reference's elasticity is SLURM's 24 h limit and
     # a resubmit, losing up to save_step steps): the loop finishes the
@@ -152,10 +169,13 @@ def train(cfg: Config, loader=None, niter: int | None = None, use_tensorboard: b
         for i in range(start, niter):
             batch = pending
             state, metrics = step_fn(state, batch)
-            if preempt.signum is not None:
-                save_state(dirs["models"], i + 1, state, cfg.save_num)
-                print(f"[preempt] signal {preempt.signum}: saved checkpoint at step {i + 1}, "
-                      "exiting", flush=True)
+            # every rank stops at the step where the first of them was signalled
+            if group.any(preempt.signum is not None, device):
+                if lead:
+                    save_state(dirs["models"], i + 1, state, cfg.save_num)
+                    sig = preempt.signum or "on another rank"
+                    print(f"[preempt] signal {sig}: saved checkpoint at step {i + 1}, exiting",
+                          flush=True)
                 break
             if i + 1 < niter:
                 pending = prep(next(it))
@@ -166,7 +186,8 @@ def train(cfg: Config, loader=None, niter: int | None = None, use_tensorboard: b
                 if window_rates is not None:
                     window_rates.append(m["steps_per_sec"])
                 t0 = time.time()
-                logger.log_stdout(i + 1, niter, m)
+                if lead:
+                    logger.log_stdout(i + 1, niter, m)
             if (i + 1) % cfg.tensorboard_step == 0:
                 logger.log_scalars(
                     i + 1, {k: float(v) for k, v in metrics.items() if k != "images"})
@@ -174,7 +195,7 @@ def train(cfg: Config, loader=None, niter: int | None = None, use_tensorboard: b
                 # (train64.py:394-402), from the step's own G forward
                 logger.log_images(
                     i + 1, {f"Result/{k}": v for k, v in metrics["images"].items()})
-            if (i + 1) % cfg.save_step == 0:
+            if (i + 1) % cfg.save_step == 0 and lead:
                 save_state(dirs["models"], i + 1, state, cfg.save_num)
     finally:
         preempt.restore()

@@ -23,6 +23,14 @@ The G phase's D forwards leave no gradient on the Ds: the generator's
 gradients come from `torch.autograd.grad`. No kernel of the port runs
 here: every model is in training mode, where each route is the plain
 composition, as JAX's step runs dense XLA.
+
+Run by `parallel.make_sharded_train_step`, the step takes this rank's rows
+of the global batch and computes JAX's sharded step: the draws are made
+for the global batch from the one seeded generator every rank holds and
+sliced; the swap counts the global first B//3 images; each loss is this
+rank's share; the BN moments are global (`models/norms.py`); the gradients
+are summed over the ranks before each Adam step; the metrics are the
+global losses and the grids the global batch's first images.
 """
 
 from __future__ import annotations
@@ -34,7 +42,13 @@ from aglayout_tpu_torch.config import Config
 from aglayout_tpu_torch.ops.bilinear import crop_bbox_dense
 from aglayout_tpu_torch.ops.image import imagenet_deprocess_batch
 from aglayout_tpu_torch.ops.rasterize import rasterize_boxes
-from aglayout_tpu_torch.train.attributes import estimate_attributes, swap_attributes
+from aglayout_tpu_torch.parallel import mesh
+from aglayout_tpu_torch.train.attributes import (
+    estimate_attributes,
+    swap_attributes,
+    swap_draws,
+    swap_weights,
+)
 from aglayout_tpu_torch.train.losses import (
     bce_logits,
     branch_weighted,
@@ -64,7 +78,8 @@ def make_train_step(cfg: Config, models: Models, matrix, pos_weight):
     draws: a dict that replaces the state's generator for some draws (for
     tests): "z" (B, O, z_dim), "eps" (B*O, z_dim) the first G forward's
     reparametrisation draw, "eps_g" the second's (`double_g_forward`),
-    "swap" (draw1, draw2, two) (`swap_attributes`). mark: called with
+    "swap" (draw1, draw2, two) (`swap_attributes`), each the global
+    batch's in a sharded step. mark: called with
     "prep", "g_forward", "d_phase" and "g_phase" as each part ends (the
     bench's timers). metrics: JAX's `D/*` and `G/*` losses as 0-d tensors
     and "images", six uint8 grids of the first 8 images or their crops.
@@ -86,22 +101,29 @@ def make_train_step(cfg: Config, models: Models, matrix, pos_weight):
                                                      preserve_rng_state=False)
         return g(*args)
 
-    def g_losses(out, batch, z, valid_f, objs_f, att_sw, annotated_sw, num_img_to_change):
+    def g_losses(out, batch, z, valid_f, objs_f, att_sw, annotated_sw, num_img_to_change, grp,
+                 first, total):
         """All G losses of the outputs `out`, against the updated Ds
-        (train64.py:283-364)."""
+        (train64.py:283-364); this rank's shares in a sharded step (`grp`,
+        its rows the global batch's images `first` on of `total`)."""
         n = valid_f.shape[0]
-        g_img_rec = masked_l1_image_rec(out["img_rec"], batch["imgs"], num_img_to_change)
-        g_z_rec = z_rec_loss(out["z_rand_rec"], out["z_rand_shift"], z.reshape(n, -1), valid_f)
+        g_img_rec = masked_l1_image_rec(out["img_rec"], batch["imgs"], num_img_to_change, first,
+                                        total)
+        g_z_rec = z_rec_loss(out["z_rand_rec"], out["z_rand_shift"], z.reshape(n, -1), valid_f,
+                             grp)
         g_kl = kl_loss(out["mu"], out["logvar"], valid_f)
         imgs = torch.cat([_nchw(out[k]).to(batch["imgs"].dtype)
                           for k in ("img_rec", "img_rand", "img_shift")])
-        g_img_adv = branch_weighted(*(bce_logits(x, 1.0) for x in di(imgs, False).chunk(3)))
+        g_img_adv = branch_weighted(*(bce_logits(x, 1.0, group=grp)
+                                      for x in di(imgs, False).chunk(3)))
         crops = torch.cat([_nchw(out[k]) for k in ("crops_input_rec", "crops_rand", "crops_shift")])
         src_all, cls_all = do(crops, False)
         att_all = da(crops, False)
-        g_obj_adv = branch_weighted(*(bce_logits(x, 1.0, valid_f) for x in src_all.chunk(3)))
-        g_obj_cls = branch_weighted(*(cross_entropy(x, objs_f, valid_f) for x in cls_all.chunk(3)))
-        g_att_cls = branch_weighted(*(bce_logits(x, att_sw, annotated_sw, pos_weight)
+        g_obj_adv = branch_weighted(*(bce_logits(x, 1.0, valid_f, group=grp)
+                                      for x in src_all.chunk(3)))
+        g_obj_cls = branch_weighted(*(cross_entropy(x, objs_f, valid_f, grp)
+                                      for x in cls_all.chunk(3)))
+        g_att_cls = branch_weighted(*(bce_logits(x, att_sw, annotated_sw, pos_weight, grp)
                                       for x in att_all.chunk(3)))
         g_loss = (cfg.lambda_img_rec * g_img_rec + cfg.lambda_z_rec * g_z_rec
                   + cfg.lambda_img_adv * g_img_adv + cfg.lambda_obj_adv * g_obj_adv
@@ -121,9 +143,12 @@ def make_train_step(cfg: Config, models: Models, matrix, pos_weight):
     def train_step(state: TrainState, batch, draws=None, mark=None):
         draws = draws or {}
         mark = mark or (lambda name: None)
+        grp = mesh.active()
         rng = state.rng
-        b, o = batch["objs"].shape
+        b, o = batch["objs"].shape  # this rank's rows in a sharded step
         n = b * o
+        # the global batch and this rank's first image in it
+        total, first = (b, 0) if grp is None else (b * grp.size, b * grp.rank)
         if "masks" not in batch:
             s = cfg.image_size
             batch = dict(batch, masks=rasterize_boxes(batch["boxes"], s, s)[..., None],
@@ -132,11 +157,15 @@ def make_train_step(cfg: Config, models: Models, matrix, pos_weight):
         objs_f = batch["objs"].reshape(-1)
         attribute_f = batch["attribute"].reshape(n, -1)
 
-        def draw(name, shape):
+        def draw(name, per_image, shape):
+            """The global batch's draw `name` (per_image rows an image), or
+            this rank's rows of it in a sharded step."""
             t = draws.get(name)
-            return t if t is not None else torch.randn(shape, generator=rng, device=dev)
+            t = t if t is not None else torch.randn((total * per_image,) + shape, generator=rng,
+                                                    device=dev)
+            return t if grp is None else t[first * per_image:(first + b) * per_image]
 
-        z = draw("z", (b, o, cfg.z_dim))
+        z = draw("z", 1, (o, cfg.z_dim))
 
         # ---- attribute estimation (train64.py:155-166) on one attribute-D
         # forward on the real crops, which the D phase's loss shares
@@ -146,15 +175,21 @@ def make_train_step(cfg: Config, models: Models, matrix, pos_weight):
         attribute_est = estimate_attributes(a_real.detach(), attribute_f, valid_f)
 
         # ---- attribute swap (train64.py:169-188)
+        swap = draws.get("swap")
+        if grp is not None:
+            if swap is None:  # drawn for the global batch, from its classes and attributes
+                rows = grp.gather(torch.cat([objs_f[:, None].to(attribute_f.dtype), attribute_f], 1))
+                swap = swap_draws(swap_weights(matrix, rows[:, 1:], rows[:, 0].long()), rng)
+            swap = tuple(t[first * o:(first + b) * o] for t in swap)
         att_sw, att_est_sw, num_img_to_change = swap_attributes(
-            matrix, attribute_f, attribute_est, objs_f, valid_f, b, o, generator=rng,
-            draws=draws.get("swap"))
+            matrix, attribute_f, attribute_est, objs_f, valid_f, total, o, generator=rng,
+            draws=swap, first=first)
         annotated_gt = (attribute_f.sum(-1) > 0) & (valid_f > 0)
         annotated_sw = (att_sw.sum(-1) > 0) & (valid_f > 0)
         g_in = (z, att_sw.view(b, o, -1), att_est_sw.view(b, o, -1))
         mark("prep")
 
-        eps_d = draw("eps", (n, cfg.z_dim))
+        eps_d = draw("eps", o, (cfg.z_dim,))
         if cfg.double_g_forward:
             with torch.no_grad():
                 out = g_forward(batch, *g_in, eps_d)
@@ -164,19 +199,21 @@ def make_train_step(cfg: Config, models: Models, matrix, pos_weight):
 
         # =========================== D phase ===========================
         sg = {k: v.detach() for k, v in out.items()}
-        d_att_cls = bce_logits(a_real, attribute_f, annotated_gt, pos_weight)
+        d_att_cls = bce_logits(a_real, attribute_f, annotated_gt, pos_weight, grp)
         imgs = torch.cat([_nchw(sg[k]).to(imgs_nchw.dtype) for k in ("img_rec", "img_rand", "img_shift")]
                          + [imgs_nchw])
         l_rec, l_rand, l_shift, l_real = di(imgs, True).chunk(4)
-        d_img_fake = branch_weighted(*(bce_logits(x, 0.0) for x in (l_rec, l_rand, l_shift)))
-        d_img_real = bce_logits(l_real, 1.0)
+        d_img_fake = branch_weighted(*(bce_logits(x, 0.0, group=grp)
+                                       for x in (l_rec, l_rand, l_shift)))
+        d_img_real = bce_logits(l_real, 1.0, group=grp)
         crops = torch.cat([_nchw(sg[k]) for k in ("crops_input_rec", "crops_rand", "crops_shift",
                                                   "crops_input")])
         src_all, cls_all = do(crops, True)
         s_rec, s_rand, s_shift, s_real = src_all.chunk(4)
-        d_obj_fake = branch_weighted(*(bce_logits(s, 0.0, valid_f) for s in (s_rec, s_rand, s_shift)))
-        d_obj_real = bce_logits(s_real, 1.0, valid_f)
-        d_obj_cls = cross_entropy(cls_all[3 * n:], objs_f, valid_f)
+        d_obj_fake = branch_weighted(*(bce_logits(s, 0.0, valid_f, group=grp)
+                                       for s in (s_rec, s_rand, s_shift)))
+        d_obj_real = bce_logits(s_real, 1.0, valid_f, group=grp)
+        d_obj_cls = cross_entropy(cls_all[3 * n:], objs_f, valid_f, grp)
         d_loss = (cfg.lambda_img_adv * (d_img_fake + d_img_real)
                   + cfg.lambda_obj_adv * (d_obj_fake + d_obj_real)
                   + cfg.lambda_obj_cls * d_obj_cls + cfg.lambda_att_cls * d_att_cls)
@@ -184,18 +221,20 @@ def make_train_step(cfg: Config, models: Models, matrix, pos_weight):
         for opt in d_opts:
             opt.zero_grad(set_to_none=True)
         d_loss.backward()  # the attribute D's through its real-crop forward too
+        if grp is not None:
+            grp.sum_grads([p for m in (di, do, da) for p in m.parameters()])
         for opt in d_opts:
             opt.step()
         mark("d_phase")
 
         # =========================== G phase ===========================
         if cfg.double_g_forward:
-            out = g_forward(batch, *g_in, draw("eps_g", (n, cfg.z_dim)))
+            out = g_forward(batch, *g_in, draw("eps_g", o, (cfg.z_dim,)))
         # the G forward's running statistics: a remat backward's
         # recomputation runs the BNs again, and they go back to these after it
         saved = [t.clone() for t in g.buffers()] if cfg.remat else None
         g_loss, g_metrics = g_losses(out, batch, z, valid_f, objs_f, att_sw, annotated_sw,
-                                     num_img_to_change)
+                                     num_img_to_change, grp, first, total)
         grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
         if saved is not None:
             with torch.no_grad():
@@ -203,24 +242,32 @@ def make_train_step(cfg: Config, models: Models, matrix, pos_weight):
                     t.copy_(v)
         for p, gr in zip(g_params, grads):
             p.grad = gr if gr is not None else torch.zeros_like(p)
+        if grp is not None:
+            grp.sum_grads(g_params)
         state.opt["g"].step()
         mark("g_phase")
         state.step += 1
 
-        gi = min(8, b)
+        gi = min(8, total)
+        shown = {
+            "img_real": batch["imgs"],
+            "crop_real": out["crops_input"],
+            "crop_real_rec": out["crops_input_rec"],
+            "crop_rand": out["crops_rand"],
+            "img_real_rec": out["img_rec"],
+            "img_fake_rand": out["img_rand"],
+        }
+        if grp is not None:  # the global batch's first gi images, in one collective
+            flat = grp.gather(torch.cat([v.detach().float().reshape(b, -1) for v in shown.values()],
+                                        1), gi)
+            parts = flat.split([v[0].numel() for v in shown.values()], 1)
+            shown = {k: p.reshape((gi,) + v.shape[1:]) for (k, v), p in zip(shown.items(), parts)}
 
         def grid(x):
             x = x.detach()[:gi]
             return imagenet_deprocess_batch(x.reshape((-1,) + x.shape[-3:]))
 
-        images = {
-            "img_real": grid(batch["imgs"]),
-            "crop_real": grid(out["crops_input"]),
-            "crop_real_rec": grid(out["crops_input_rec"]),
-            "crop_rand": grid(out["crops_rand"]),
-            "img_real_rec": grid(out["img_rec"]),
-            "img_fake_rand": grid(out["img_rand"]),
-        }
+        images = {k: grid(v) for k, v in shown.items()}
         metrics = {
             "D/loss": d_loss,
             "D/image_adv_loss_real": d_img_real,
@@ -232,6 +279,9 @@ def make_train_step(cfg: Config, models: Models, matrix, pos_weight):
             **g_metrics,
         }
         metrics = {k: v.detach() for k, v in metrics.items()}
+        if grp is not None:  # the global losses: the sums of the ranks' shares
+            summed = grp.global_sum(torch.stack(list(metrics.values())))
+            metrics = dict(zip(metrics, summed.unbind()))
         return state, {**metrics, "images": images}
 
     return train_step

@@ -1,5 +1,6 @@
-"""Weight bridge: JAX generator and discriminator trees -> this package's
-`state_dict`s, and a JAX train state -> the port's (`train_state_from_jax`).
+"""Weight bridge: JAX generator, discriminator and ResNet-50 trees -> this
+package's `state_dict`s, and a JAX train state -> the port's
+(`train_state_from_jax`).
 
 The inverse of `aglayout_tpu/utils/torch_import.py::import_generator` and
 `import_*_discriminator`: it takes the JAX (params, batch_stats) trees as
@@ -174,6 +175,29 @@ def attribute_discriminator_state_dict_from_jax(params, batch_stats,
     t = _StateBuilder(params, batch_stats)
     _d_trunk(t, 6 if extra_block else 5)
     t.sn_linear("classifier_att", ("classifier_att",))
+    return t.sd
+
+
+def resnet_state_dict_from_jax(params, batch_stats, stage_sizes=(3, 4, 6, 3)) -> dict:
+    """JAX `eval/resnet.ResNet50` (params, batch_stats) -> the port's
+    `eval/resnet.ResNet50` `state_dict` (torchvision's keys): flax's
+    Conv_0/BatchNorm_0 stem, Bottleneck_k (Conv_0-2, BatchNorm_0-2, the
+    projection Conv_3/BatchNorm_3) counted across the stages, Dense_0."""
+    t = _StateBuilder(params, batch_stats)
+    t.conv("conv1", ("Conv_0",), bias=False)
+    t.bn("bn1", ("BatchNorm_0",))
+    k = 0
+    for i, count in enumerate(stage_sizes):
+        for j in range(count):
+            src, dst = f"Bottleneck_{k}", f"layer{i + 1}.{j}"
+            for n in range(3):
+                t.conv(f"{dst}.conv{n + 1}", (src, f"Conv_{n}"), bias=False)
+                t.bn(f"{dst}.bn{n + 1}", (src, f"BatchNorm_{n}"))
+            if "Conv_3" in params[src]:
+                t.conv(f"{dst}.downsample.0", (src, "Conv_3"), bias=False)
+                t.bn(f"{dst}.downsample.1", (src, "BatchNorm_3"))
+            k += 1
+    t.linear("fc", ("Dense_0",))
     return t.sd
 
 

@@ -137,6 +137,33 @@ raises, and the run then exits non-zero without printing a result:
      the card (f32, TF32 off) against the CPU on 4 images, 1e-4; images/s of
      InceptionV3 at 299^2 and pairs/s of LPIPS-AlexNet at 128^2. Its files
      (under build/chip_smoke_infer/) are deleted when the phase ends.
+ 15. data parallelism and the crop classifiers (`parallel/mesh.py`,
+     `eval/{resnet,classifier,train_att_cls}.py`), every rank a child
+     process of the phase (`python3 chip_smoke.py --parallel-child PART`,
+     after the build phase has built the kernels, so that no two ranks
+     build at once), so that a failing rank fails the run: (a) an NCCL
+     group of one rank: the sharded train step at 128^2 full width, B=8,
+     bf16, against the same step with no group (metrics 2e-2 relative,
+     params 1e-6 where Adam's first step is sure of its sign and 2 lr
+     elsewhere, statistics and SN vectors 2e-2), and ms a step of each by
+     CUDA events, in turns; (b) two ranks sharing the card over gloo (NCCL
+     puts no two ranks on one device): one 128^2 full-width step in f32
+     with TF32 off, global B=8, against the one-process step on the card
+     (metrics 1e-4, params as in (a), statistics 1e-5, grids one level);
+     (c) on those two ranks `make_sharded_generate` at 128^2, B=128, bf16:
+     K1-K5 exactly once on each rank, the gathered image within phase 4's
+     128^2 limits of the one-process image; (d) `python -m
+     torch.distributed.run --nproc_per_node 1 -m aglayout_tpu_torch.train
+     --synthetic --image_size 128` for 3 steps: rc 0, 3 log lines, its one
+     checkpoint; (e) on the seeded synthetic stream at the 128^2 model's
+     width (179 classes, 106 attributes, B=8, O=10), f32 with TF32 off:
+     `train_crop_classifier` at full depth for 3 steps on 224^2 crops
+     (finite losses), ResNet-50's forward on the card against the CPU on 4
+     crops with seeded weights (1e-4), `test_crop_classifier` on two
+     `gen_pickle` batches, `train_attribute_classifier` (the sixth block)
+     for 3 steps and its checkpoint, and the ResNet-50 train step's crops/s
+     with its FLOP count and share of the f32 peak. Its files (under
+     build/chip_smoke_parallel/) are deleted when the phase ends.
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -1561,16 +1588,20 @@ def eval_batch(cfg, b: int, seed: int, device):
 
 def seeded_inception(seed: int = 0):
     """An InceptionV3 with seeded weights whose activations neither vanish
-    nor blow up through its 94 convs: He-normal convs (torch's default
+    nor blow up through its 94 convs (`seeded_weights`; torch's default
     init shrinks each layer's variance about 6x, and pool3 of the default
-    net is a constant to 1e-6, its logits the classifier's bias) and BN
-    statistics and affines drawn near the identity."""
-    import torch.nn as nn
-
+    net is a constant to 1e-6, its logits the classifier's bias)."""
     from aglayout_tpu_torch.eval.inception import InceptionV3
 
+    return seeded_weights(InceptionV3(), seed)
+
+
+def seeded_weights(net, seed: int):
+    """`net` with seeded weights: He-normal convs, BN statistics and
+    affines drawn near the identity, linear layers of unit gain."""
+    import torch.nn as nn
+
     gen = torch.Generator().manual_seed(seed)
-    net = InceptionV3()
     with torch.no_grad():
         for m in net.modules():
             if isinstance(m, nn.Conv2d):
@@ -1824,6 +1855,280 @@ def phase_infer(smi: str):
     log(f"[infer] phase done in {time.perf_counter() - t0:.1f} s")
 
 
+RESULT = "[parallel-result]"  # the line a phase-15 child reports on
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _children(part: str, world: int, timeout: float = 600):
+    """Run `python3 chip_smoke.py --parallel-child part` as ranks 0..world-1
+    of one process group on the card (LOCAL_RANK 0: they share
+    it) and return each rank's JSON result; any rank that fails, or does
+    not end in `timeout` seconds, fails the phase (every child is killed)."""
+    from pathlib import Path
+
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+               WORLD_SIZE=str(world), LOCAL_RANK="0")
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-child",
+                               part], cwd=Path(__file__).resolve().parent,
+                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    results = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        lines = [line for line in out.splitlines() if line.startswith(RESULT)]
+        if p.returncode != 0 or len(lines) != 1:
+            raise AssertionError(f"parallel {part}: rank {r} rc {p.returncode}: {out[-3000:]}")
+        results.append(json.loads(lines[0][len(RESULT):]))
+    return results
+
+
+def parallel_child(part: str) -> int:
+    """One rank of phase 15: "nccl1", (a) the sharded step in an NCCL group
+    of one against the step with no group; "gloo2", (b) and (c) on two
+    ranks sharing the card over gloo. Prints one `RESULT` JSON line."""
+    from aglayout_tpu_torch.bench import layouts, train_inputs
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.models import build_generator
+    from aglayout_tpu_torch.parallel import (
+        make_sharded_generate,
+        make_sharded_train_step,
+        maybe_init_distributed,
+    )
+    from aglayout_tpu_torch.train.compare import step_errors
+    from aglayout_tpu_torch.train.state import create_train_state
+    from aglayout_tpu_torch.train.step import make_train_step
+
+    out = {}
+    group = maybe_init_distributed("cuda", backend="gloo" if part == "gloo2" else None)
+    out["backend"] = torch.distributed.get_backend()
+    bt = 8
+    if part == "nccl1":  # (a)
+        cfg = config_for(128, batch_size=bt, max_objects=O, bf16=True)
+        batch, matrix, pw = train_inputs(cfg, bt)
+        batch = batch_to_torch(batch, "cuda")
+        runs, steps = {}, {}
+        for name in ("plain", "group"):
+            state = create_train_state(cfg, "cuda", seed=0)
+            step = make_train_step(cfg, state.models, matrix, pw)
+            steps[name] = (step if name == "plain" else make_sharded_train_step(step, group), state)
+            runs[name] = steps[name][0](state, group.rows(batch))
+        out["errors"] = step_errors(runs["plain"], runs["group"], cfg.learning_rate)
+        out["ms"] = {}
+        for name in ("plain", "group", "group", "plain"):  # alternated: the card drifts
+            step, state = steps[name]
+            out["ms"].setdefault(name, []).append(
+                cuda_ms(lambda: step(state, batch), iters=5, warmup=1))
+    else:  # (b), (c)
+        set_tf32(False)
+        cfg = config_for(128, batch_size=bt, max_objects=O)
+        batch, matrix, pw = train_inputs(cfg, bt)
+        state = create_train_state(cfg, "cuda", seed=0)
+        step = make_sharded_train_step(make_train_step(cfg, state.models, matrix, pw), group)
+        got = step(state, batch_to_torch(group.rows(batch), "cuda"))
+        torch.cuda.synchronize()
+        if group.rank == 0:
+            ref_state = create_train_state(cfg, "cuda", seed=0)
+            ref = make_train_step(cfg, ref_state.models, matrix, pw)(
+                ref_state, batch_to_torch(batch, "cuda"))
+            out["errors"] = step_errors(ref, got, cfg.learning_rate)
+            del ref, ref_state
+        del got, state, step
+        torch.cuda.empty_cache()
+        set_tf32(True)
+        # (c) the sharded generate, kernels on, at the serving batch
+        gcfg = config_for(128, batch_size=B, max_objects=O, bf16=True)
+        model = build_generator(gcfg, "cuda", seed=0).eval()
+        ins = layouts(gcfg, B, O, seed=0, device="cuda")
+        generate = make_sharded_generate(model, group)
+        launch_counts(reset=True)
+        img = generate(*ins)
+        torch.cuda.synchronize()
+        out["launches"] = {k: v for k, v in launch_counts().items() if v}
+        out["shape"] = list(img.shape)
+        out["finite"] = bool(torch.isfinite(img.float()).all())
+        out["generate_ms"] = cuda_ms(lambda: generate(*ins), iters=3, warmup=1)
+        if group.rank == 0:
+            with torch.no_grad():
+                want = model.generate(*ins)
+            out["image_rel"], out["image_mean_rel"] = errors(img, want)[1], mean_rel(img, want)
+            out["one_process_ms"] = cuda_ms(lambda: model.generate(*ins), iters=3, warmup=1)
+    out["rank"] = group.rank
+    print(RESULT + json.dumps(out), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def phase_parallel(smi: str):
+    """Data parallelism (`parallel/mesh.py`) and the crop classifiers on the
+    card: (a)-(c) in child processes (`parallel_child`), (d) the train entry
+    point under torch's launcher, (e) the classifiers in this process."""
+    import shutil
+    from pathlib import Path
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # ---- (a) an NCCL group of one: the sharded step against the plain one
+    (a,) = _children("nccl1", 1)
+    e, ms = a["errors"], {k: sum(v) / len(v) for k, v in a["ms"].items()}
+    log(f"[parallel] (a) {a['backend']} group of 1, 128^2 full width B=8 bf16: the sharded step "
+        f"against the step with no group: metrics max rel {e['metrics']:.3e} (tol 2e-2), "
+        f"gradients max rel L2 {e['grads']:.3e}, params {e['params_sure']:.3e} where Adam is "
+        f"sure of its sign (tol 1e-6), {e['params_any']:.3e} anywhere (tol 2 lr), BN statistics "
+        f"and SN vectors {e['stats']:.3e} (tol 2e-2), grids {e['grids']} levels; "
+        f"{ms['group']:.2f} ms a step with the group, {ms['plain']:.2f} without (CUDA events, "
+        f"5 steps after a warm-up, twice each in turns: {a['ms']}) | {smi}")
+    if (a["backend"] != "nccl" or e["metrics"] > 2e-2 or e["stats"] > 2e-2
+            or e["params_sure"] > 1e-6 or e["params_any"] > e["params_any_tol"] + 1e-6):
+        raise AssertionError(f"parallel (a): the NCCL step of one rank differs: {e}")
+
+    # ---- (b), (c) two ranks sharing the card over gloo
+    ranks = _children("gloo2", 2)
+    e = ranks[0]["errors"]
+    log(f"[parallel] (b) {ranks[0]['backend']}, 2 ranks on one card, 128^2 full width, global "
+        f"B=8, f32 (TF32 off): against the one-process step on the card: metrics max rel "
+        f"{e['metrics']:.3e} (tol 1e-4), gradients max rel L2 {e['grads']:.3e}, params "
+        f"{e['params_sure']:.3e} where Adam is sure (tol 1e-6), {e['params_any']:.3e} anywhere "
+        f"(tol 2 lr), statistics and SN vectors {e['stats']:.3e} (tol 1e-5), grids "
+        f"{e['grids']} levels (tol 1)")
+    if (e["metrics"] > 1e-4 or e["stats"] > 1e-5 or e["params_sure"] > 1e-6 or e["grids"] > 1
+            or e["params_any"] > e["params_any_tol"] + 1e-6):
+        raise AssertionError(f"parallel (b): the two-rank step differs: {e}")
+    r0 = ranks[0]
+    log(f"[parallel] (c) make_sharded_generate 128^2 B={B} bf16 on 2 ranks: launches by rank "
+        f"{[r['launches'] for r in ranks]}; gathered image {r0['shape']}, finite "
+        f"{[r['finite'] for r in ranks]}; against the one-process image max rel "
+        f"{r0['image_rel']:.3e} (tol 5e-2), mean rel {r0['image_mean_rel']:.3e} (tol 3e-2); "
+        f"{r0['generate_ms']:.2f} ms a sharded batch, {r0['one_process_ms']:.2f} in one process "
+        f"(CUDA events) | {smi}")
+    if (any(r["launches"] != PATH128 or r["shape"] != [B, 128, 128, 3] or not r["finite"]
+            for r in ranks) or r0["image_rel"] > 5e-2 or r0["image_mean_rel"] > 3e-2):
+        raise AssertionError("parallel (c): launches, shape or image off")
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_parallel"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        # ---- (d) the train entry point under torch's launcher
+        t1 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "1", "-m", "aglayout_tpu_torch.train", "--synthetic", "--image_size", "128",
+             "--batch_size", "8", "--bf16", "true", "--niter", "3", "--log_step", "1",
+             "--save_step", "3", "--allow_uniform_matrix", "true", "--use_tensorboard", "false",
+             "--path", str(root / "d"), "--vg_dir", str(root / "d")],
+            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
+        lines = [line for line in proc.stdout.splitlines() if line.startswith("iter [")]
+        saved = sorted(p.name for p in (root / "d").rglob("step_*.pt"))
+        log(f"[parallel] (d) python -m torch.distributed.run --nproc_per_node 1 -m "
+            f"aglayout_tpu_torch.train --synthetic --image_size 128 --niter 3: rc "
+            f"{proc.returncode} in {time.perf_counter() - t1:.1f} s, {len(lines)} log lines, "
+            f"checkpoints {saved}")
+        if proc.returncode != 0 or len(lines) != 3 or saved != ["step_3.pt"]:
+            raise AssertionError(f"parallel (d): {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        # ---- (e) the classifiers on the seeded synthetic stream
+        phase_classifiers(smi, root / "e")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[parallel] phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def phase_classifiers(smi: str, root):
+    """Phase 15 (e): the crop classifier (ResNet-50 at full depth, 224^2
+    crops) and the attribute classifier (128^2 full width) train on the
+    card; ResNet-50's forward against the CPU; the crop classifier scores
+    `gen_pickle` pickles; the ResNet-50 train step's crops/s."""
+    import contextlib
+    import re
+    import types
+
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.eval import classifier, train_att_cls
+    from aglayout_tpu_torch.eval.gen_pickle import dump_generation_pickles
+    from aglayout_tpu_torch.eval.resnet import ResNet50
+    from aglayout_tpu_torch.models import build_generator
+    from aglayout_tpu_torch.test import synthetic_loader
+    from aglayout_tpu_torch.train import __main__ as entry
+    from aglayout_tpu_torch.train.losses import cross_entropy
+
+    cs, cfg = 224, config_for(128, batch_size=8, max_objects=O)
+    set_tf32(False)
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        model = classifier.train_crop_classifier(cfg, entry.synthetic_stream(cfg), niter=3,
+                                                 crop_size=cs, log_step=1, device="cuda")
+        torch.cuda.synchronize()
+    losses = [float(x) for x in re.findall(r"loss ([-0-9.e]+)", "".join(tee.lines("cls iter")))]
+    # the train step's rate at the loader's batch: B * O crops
+    net, opt, _ = classifier.make_crop_classifier(cfg.num_classes, cs, device="cuda")
+    batch = batch_to_torch(next(entry.synthetic_stream(cfg)), "cuda")
+    crops = classifier.crops_of(batch["imgs"], batch["boxes"], cs)
+
+    def step():
+        loss = cross_entropy(net(crops), batch["objs"].reshape(-1), batch["valid"].reshape(-1))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+
+    step_ms = cuda_ms(step, iters=5, warmup=2)
+    net.eval()
+    flops = 3 * layer_flops(net, crops)  # forward, and the backward's two products
+    rate = flops * crops.shape[0] / step_ms * 1e3
+    # ResNet-50 on the card against the CPU, seeded weights (every branch counts)
+    ref = seeded_weights(ResNet50(cfg.num_classes), 0).eval()
+    x = torch.randn(4, 3, cs, cs, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        want = ref(x)
+        got = ref.cuda()(x.cuda())
+    rel = errors(got.cpu(), want)[1]
+    log(f"[parallel] (e) train_crop_classifier, ResNet-50 full depth, {crops.shape[0]} crops "
+        f"of {cs}^2 a step, f32 (TF32 off), 3 steps: losses {losses}; the step "
+        f"{step_ms:.2f} ms, {crops.shape[0] / step_ms * 1e3:.1f} crops/s, {flops / 1e9:.3f} GFLOP "
+        f"a crop (3x the forward's convs and fc, two a multiply-add): {rate / 1e12:.2f} "
+        f"TFLOP/s, {100 * rate / F32:.1f} % of the f32 peak (CUDA events); the forward on the "
+        f"card against the CPU, 4 crops, seeded weights: max rel {rel:.3e} (tol 1e-4) | {smi}")
+    if len(losses) != 3 or not np.all(np.isfinite(losses)) or rel > 1e-4:
+        raise AssertionError("parallel (e): the crop classifier's losses or forward off")
+    # test_crop_classifier on the pickles of `gen_pickle`
+    g = build_generator(cfg, "cuda", seed=0)
+    dump_generation_pickles(cfg, types.SimpleNamespace(g=g), synthetic_loader(cfg),
+                            str(root / "pickles"), max_batches=2, device="cuda")
+    acc = classifier.test_crop_classifier(model, str(root / "pickles"), crop_size=cs,
+                                          device="cuda")
+    log(f"[parallel] (e) test_crop_classifier on 2 gen_pickle batches (128^2, B=8): {acc}")
+    if set(acc) != {"real", "rand", "shift"} or not all(0.0 <= v <= 1.0 for v in acc.values()):
+        raise AssertionError(f"parallel (e): accuracies {acc}")
+    # the attribute classifier at the 128^2 model's width (the sixth block, 64^2 crops)
+    tee = _Tee(sys.stdout)
+    t1 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        att, loss = train_att_cls.train_attribute_classifier(
+            cfg, entry.synthetic_stream(cfg), niter=3, log_step=1, out_dir=str(root / "att"),
+            device="cuda")
+        torch.cuda.synchronize()
+    saved = (root / "att" / "step_3.pt").exists()
+    log(f"[parallel] (e) train_attribute_classifier 128^2 full width, B=8, 3 steps in "
+        f"{time.perf_counter() - t1:.2f} s: losses {tee.lines('att_cls iter')}, "
+        f"{len(att.main)} blocks, checkpoint step_3.pt saved {saved}")
+    if not np.isfinite(loss) or not saved or len(att.main) != 6:
+        raise AssertionError("parallel (e): the attribute classifier did not train")
+    set_tf32(True)
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -1856,6 +2161,7 @@ def main() -> int:
     phase_train(smi)
     phase_trainer(smi)
     phase_infer(smi)
+    phase_parallel(smi)
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))
@@ -1867,4 +2173,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-child"]:
+        sys.exit(parallel_child(sys.argv[2]))
     sys.exit(main())

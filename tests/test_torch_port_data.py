@@ -19,6 +19,7 @@ from aglayout_tpu.data.split_vg import make_splits as jax_make_splits
 from aglayout_tpu_torch.data import dataset, native, preprocess_vg
 from aglayout_tpu_torch.data.cooccurrence import build_matrix
 from aglayout_tpu_torch.data.split_vg import make_splits
+from tests.torch_port_common import vg_etl, write_vg_corpus
 
 H5_KEYS = ["image_ids", "object_ids", "object_names", "object_boxes", "objects_per_image",
            "relationship_ids", "relationship_subjects", "relationship_predicates",
@@ -30,65 +31,10 @@ H5_KEYS = ["image_ids", "object_ids", "object_names", "object_boxes", "objects_p
 def vg_dirs(tmp_path_factory):
     """A miniature Visual Genome corpus (JSON and JPEGs) and the two
     packages' ETL outputs over it: (corpus dir, JAX's out dir, the port's)."""
-    from PIL import Image
-
     root = tmp_path_factory.mktemp("vg")
-    img_dir = root / "images" / "VG_100K"
-    img_dir.mkdir(parents=True)
-    rng = np.random.RandomState(0)
-    images, objects, attributes, relationships = [], [], [], []
-    names = ["tree", "car", "person", "sky"]
-    atts = ["white", "tile", "wooden", "red", "green"]
-    oid = 1000
-    for i in range(12):
-        image_id = i + 1
-        w, h = (400, 300) if i % 3 else (333, 217)
-        Image.fromarray(rng.randint(0, 255, (h, w, 3), dtype=np.uint8)).save(
-            img_dir / f"{image_id}.jpg")
-        images.append({"image_id": image_id, "width": w, "height": h,
-                       "url": f"https://cs.stanford.edu/VG_100K/{image_id}.jpg"})
-        objs, rels, att_recs = [], [], []
-        for j in range(4 + i % 3):  # 4-6 objects: some orphans, some selection
-            objs.append({"object_id": oid, "names": [names[(i + j) % len(names)]],
-                         "x": 10 + 45 * j, "y": 20 + 30 * j, "w": 80 + 10 * (j % 2), "h": 90})
-            att_recs.append({"object_id": oid,
-                             "attributes": [atts[(i + j) % len(atts)], atts[(i + 2 * j) % len(atts)]]
-                             if j % 2 else [atts[(i + j) % len(atts)]]})
-            oid += 1
-        for j in range(2):
-            rels.append({"relationship_id": oid * 10 + j, "predicate": "on",
-                         "subject": {"object_id": objs[j]["object_id"]},
-                         "object": {"object_id": objs[j + 1]["object_id"]}})
-        objects.append({"image_id": image_id, "objects": objs})
-        attributes.append({"image_id": image_id, "attributes": att_recs})
-        relationships.append({"image_id": image_id, "relationships": rels})
-    for name, data in [("image_data.json", images), ("objects.json", objects),
-                       ("attributes.json", attributes), ("relationships.json", relationships)]:
-        with open(root / name, "w") as f:
-            json.dump(data, f)
-    with open(root / "vg_splits.json", "w") as f:
-        json.dump(make_splits([im["image_id"] for im in images], seed=0, train_frac=0.67), f)
-
-    outs = []
-    for pkg, tag in ((jax_preprocess, "jax"), (preprocess_vg, "port")):
-        out = root / tag
-        out.mkdir()
-        args = pkg.build_parser().parse_args([
-            "--splits_json", str(root / "vg_splits.json"),
-            "--images_json", str(root / "image_data.json"),
-            "--objects_json", str(root / "objects.json"),
-            "--attributes_json", str(root / "attributes.json"),
-            "--relationships_json", str(root / "relationships.json"),
-            "--object_aliases", "", "--relationship_aliases", "",
-            "--min_image_size", "100", "--min_object_instances", "1",
-            "--min_attribute_instances", "1", "--min_object_size", "16",
-            "--min_objects_per_image", "2", "--min_relationship_instances", "1",
-            "--use_counted_attributes",
-            "--output_vocab_json", str(out / "vocab.json"), "--output_h5_dir", str(out),
-        ])
-        pkg.main(args)
-        outs.append(str(out))
-    return str(root), *outs
+    write_vg_corpus(root)
+    return str(root), *(vg_etl(pkg, root, tag) for pkg, tag in ((jax_preprocess, "jax"),
+                                                                 (preprocess_vg, "port")))
 
 
 def _vocab(d):

@@ -48,7 +48,10 @@ def test_port_sources_name_no_jax():
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
     names = {os.path.relpath(p, REPO) for p in sources}
     assert {"aglayout_tpu_torch/bench.py", "aglayout_tpu_torch/ops/int8.py",
-            "aglayout_tpu_torch/ops/conv8_int8.py", "aglayout_tpu_torch/ops/spade_c6_int8.py"} <= names
+            "aglayout_tpu_torch/ops/conv8_int8.py", "aglayout_tpu_torch/ops/spade_c6_int8.py",
+            "aglayout_tpu_torch/parallel/mesh.py", "aglayout_tpu_torch/eval/resnet.py",
+            "aglayout_tpu_torch/eval/classifier.py",
+            "aglayout_tpu_torch/eval/train_att_cls.py"} <= names
     for path in sources:
         with open(path) as fh:
             found = pattern.search(fh.read())

@@ -153,8 +153,10 @@ def test_train_runs_off_the_main_thread(tmp_path):
 
 
 def test_train_refuses_what_it_cannot_run(tmp_path, monkeypatch):
+    """num_devices other than 0 or the process group's size (1 without a
+    group) raises and names the launcher; no CUDA device raises."""
     cfg = _cfg(tmp_path)
-    with pytest.raises(NotImplementedError, match="data parallelism"):
+    with pytest.raises(ValueError, match=r"python -m torch\.distributed\.run"):
         loop.train(dataclasses.replace(cfg, num_devices=2), loader=_loader(cfg), niter=1,
                    device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

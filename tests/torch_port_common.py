@@ -319,12 +319,13 @@ def close(got, want, tol: float, what: str = ""):
 
 class StepCase:
     """One train step in both packages from the same weights, batch and
-    draws, at `image_size`: the JAX step jitted once (`jstep`), the JAX
+    draws, at `image_size` (`cfg_kw` overrides `train_configs`' fields):
+    the JAX step jitted once (`jstep`), the JAX
     states before and after (`js0`, `js1`), the port's state after
     (`state1`), both metrics, and `fresh()`, the port's state before (for
     further steps in the port)."""
 
-    def __init__(self, image_size: int):
+    def __init__(self, image_size: int, **cfg_kw):
         import functools
 
         import jax
@@ -335,7 +336,7 @@ class StepCase:
         from aglayout_tpu_torch.train.state import create_train_state
         from aglayout_tpu_torch.train.step import make_train_step
 
-        self.cfg, self.jcfg = train_configs(image_size)
+        self.cfg, self.jcfg = train_configs(image_size, **cfg_kw)
         self.batch, self.matrix, self.pos_weight = train_inputs(self.cfg)
         self.fresh = functools.partial(create_train_state, self.cfg, "cpu", 0)
         state = self.fresh()
@@ -446,7 +447,7 @@ def check_grads_end_to_end(got, want, what: str, tol: float):
     return (rel[worst], worst), len(rel)
 
 
-def check_step_grads_params_stats(case):
+def check_step_grads_params_stats(case, grad_tol=None, flip_tol=None):
     """After one step: every net's gradients (2 exp_avg: Adam's first
     moment after one step is (1 - 0.5) g in both packages) within
     `STEP_GRAD_TOL` of JAX's; the params within 1e-6 of JAX's wherever
@@ -455,17 +456,21 @@ def check_step_grads_params_stats(case):
     `STEP_FLIP_TOL` of the elements whose |g| is above 1e-3 of their
     tensor's max change sign;
     every BN running statistic and spectral-norm u, v within 1e-5 of its
-    tensor's max |.| (at least 1)."""
+    tensor's max |.| (at least 1). `grad_tol` and `flip_tol` replace the
+    size's `STEP_GRAD_TOL` and `STEP_FLIP_TOL` where a case's own f64
+    witness shows f32 gradients that far from exact."""
     from aglayout_tpu_torch.train.compare import adam_sure
     from aglayout_tpu_torch.utils.jax_import import train_state_from_jax
 
     size = case.cfg.image_size
+    grad_tol = STEP_GRAD_TOL[size] if grad_tol is None else grad_tol
+    flip_tol = STEP_FLIP_TOL[size] if flip_tol is None else flip_tol
     ported = train_state_from_jax(case.js1, case.cfg, "cpu")
     got, want = _params_and_moments(case.state1), _params_and_moments(ported)
     assert got.keys() == want.keys()
     grads = {k: 2 * v[1] for k, v in want.items()}
     got_grads = {k: 2 * v[1] for k, v in got.items()}
-    check_grads_end_to_end(got_grads, grads, f"step {size}", STEP_GRAD_TOL[size])
+    check_grads_end_to_end(got_grads, grads, f"step {size}", grad_tol)
     case.noise = noise_tensors(grads)
     flips = total = 0
     case.sure_worst = 0.0
@@ -481,7 +486,7 @@ def check_step_grads_params_stats(case):
             total += big.sum().item()
         assert diff.max() <= 2 * LR + 1e-6, (key, "params")
     case.flips = (flips, total)
-    assert flips <= STEP_FLIP_TOL[size] * total, (flips, total)
+    assert flips <= flip_tol * total, (flips, total)
     for name, module in case.state1.models.items():
         wsd = getattr(ported.models, name).state_dict()
         for key, v in module.state_dict().items():
@@ -538,3 +543,75 @@ def check_second_step(case):
         worst = max(worst, (diff[same].max().item() if same.any() else 0.0, key))
         checked += 1
     case.second_step_worst = worst + (checked, len(got))
+
+
+# ---- a miniature Visual Genome corpus
+
+
+def write_vg_corpus(root) -> None:
+    """A miniature Visual Genome corpus under the directory `root`: 12
+    JPEGs of 4-6 objects (some orphans, some selection), the JSON files and
+    the splits the ETL reads."""
+    import json
+
+    from PIL import Image
+
+    from aglayout_tpu_torch.data.split_vg import make_splits
+
+    img_dir = root / "images" / "VG_100K"
+    img_dir.mkdir(parents=True)
+    rng = np.random.RandomState(0)
+    images, objects, attributes, relationships = [], [], [], []
+    names = ["tree", "car", "person", "sky"]
+    atts = ["white", "tile", "wooden", "red", "green"]
+    oid = 1000
+    for i in range(12):
+        image_id = i + 1
+        w, h = (400, 300) if i % 3 else (333, 217)
+        Image.fromarray(rng.randint(0, 255, (h, w, 3), dtype=np.uint8)).save(
+            img_dir / f"{image_id}.jpg")
+        images.append({"image_id": image_id, "width": w, "height": h,
+                       "url": f"https://cs.stanford.edu/VG_100K/{image_id}.jpg"})
+        objs, rels, att_recs = [], [], []
+        for j in range(4 + i % 3):
+            objs.append({"object_id": oid, "names": [names[(i + j) % len(names)]],
+                         "x": 10 + 45 * j, "y": 20 + 30 * j, "w": 80 + 10 * (j % 2), "h": 90})
+            att_recs.append({"object_id": oid,
+                             "attributes": [atts[(i + j) % len(atts)], atts[(i + 2 * j) % len(atts)]]
+                             if j % 2 else [atts[(i + j) % len(atts)]]})
+            oid += 1
+        for j in range(2):
+            rels.append({"relationship_id": oid * 10 + j, "predicate": "on",
+                         "subject": {"object_id": objs[j]["object_id"]},
+                         "object": {"object_id": objs[j + 1]["object_id"]}})
+        objects.append({"image_id": image_id, "objects": objs})
+        attributes.append({"image_id": image_id, "attributes": att_recs})
+        relationships.append({"image_id": image_id, "relationships": rels})
+    for name, data in [("image_data.json", images), ("objects.json", objects),
+                       ("attributes.json", attributes), ("relationships.json", relationships)]:
+        with open(root / name, "w") as f:
+            json.dump(data, f)
+    with open(root / "vg_splits.json", "w") as f:
+        json.dump(make_splits([im["image_id"] for im in images], seed=0, train_frac=0.67), f)
+
+
+def vg_etl(pkg, root, tag: str) -> str:
+    """Run the ETL module `pkg` (either package's `data/preprocess_vg`) over
+    `write_vg_corpus`' corpus at `root` into root/tag; returns that dir."""
+    out = root / tag
+    out.mkdir()
+    args = pkg.build_parser().parse_args([
+        "--splits_json", str(root / "vg_splits.json"),
+        "--images_json", str(root / "image_data.json"),
+        "--objects_json", str(root / "objects.json"),
+        "--attributes_json", str(root / "attributes.json"),
+        "--relationships_json", str(root / "relationships.json"),
+        "--object_aliases", "", "--relationship_aliases", "",
+        "--min_image_size", "100", "--min_object_instances", "1",
+        "--min_attribute_instances", "1", "--min_object_size", "16",
+        "--min_objects_per_image", "2", "--min_relationship_instances", "1",
+        "--use_counted_attributes",
+        "--output_vocab_json", str(out / "vocab.json"), "--output_h5_dir", str(out),
+    ])
+    pkg.main(args)
+    return str(out)
