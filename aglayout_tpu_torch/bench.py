@@ -28,7 +28,8 @@ tables, and with `--no_compact_heads` on flat ones.
 reference's; 128^2 unless `--image_size` says otherwise) on one seeded
 `synthetic_batch`, after one warm-up step, in bf16, or with `--f32` in f32
 with TF32 off. Its JSON line holds steps/sec, images/sec and ms/step from
-CUDA events around the steps, the mean ms of each part of a step (prep:
+CUDA events around the steps, the warm-up step's seconds on the host
+clock (the card synchronised after it), the mean ms of each part of a step (prep:
 crops, the attribute D's real-crop forward, estimation and swap;
 g_forward; d_phase: the Ds' forwards, backward and Adam steps; g_phase:
 the G losses, backward and Adam step) from events the step marks, the D
@@ -112,6 +113,14 @@ def card_name_and_power_limit() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def card(device) -> str:
+    """What a run's numbers were taken on: the card's name and power limit,
+    or the host's clock."""
+    if torch.device(device).type == "cuda":
+        return card_name_and_power_limit()
+    return "cpu (host clock; not a device number)"
+
+
 def parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--image_size", type=int, default=128)
@@ -185,12 +194,10 @@ def run(args, **overrides) -> dict:
         end.record()
         torch.cuda.synchronize()
         ms = start.elapsed_time(end) / iters
-        card = card_name_and_power_limit()
     else:
         t0 = time.perf_counter()
         checksum = batches(zs[1])
         ms = (time.perf_counter() - t0) * 1e3 / iters
-        card = "cpu (host clock; not a device number)"
     checksum = float(checksum)
     if not np.isfinite(checksum):
         raise FloatingPointError(f"bench: the images' checksum is {checksum}")
@@ -199,7 +206,7 @@ def run(args, **overrides) -> dict:
         "value": round(b / ms * 1e3, 1),
         "unit": "images/sec",
         "ms_per_batch": round(ms, 3),
-        "card": card,
+        "card": card(args.device),
         "config": {"batch_size": b, "max_objects": o, "bf16": cfg.bf16,
                    "int8_serving": cfg.int8_serving, "typed_c3": cfg.typed_c3,
                    "compact_heads": cfg.use_compact_heads,
@@ -241,10 +248,12 @@ def _time_train(args, cfg) -> dict:
     def elapsed_ms(a, b):
         return a.elapsed_time(b) if cuda else (b - a) * 1e3
 
+    t0 = time.perf_counter()
     state, _ = step(state, batch)  # warm-up: cuDNN's algorithm choice, the allocator
     if cuda:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+    warm_s = time.perf_counter() - t0
     marks, total = [], torch.zeros((), device=dev)
     for _ in range(iters):
         times = {"start": stamp()}
@@ -266,10 +275,11 @@ def _time_train(args, cfg) -> dict:
         "unit": "steps/sec",
         "images_per_sec": round(b * 1e3 / ms, 1),
         "ms_per_step": round(ms, 3),
+        "warm_step_s": round(warm_s, 3),
         "phase_ms": parts,
         "d_phase_share": round(parts["d_phase"] / ms, 3),
         "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3) if cuda else None,
-        "card": card_name_and_power_limit() if cuda else "cpu (host clock; not a device number)",
+        "card": card(dev),
         "config": {"batch_size": b, "max_objects": o, "bf16": cfg.bf16, "remat": cfg.remat,
                    "double_g_forward": cfg.double_g_forward, "iters": iters,
                    "tf32": cuda and torch.backends.cudnn.allow_tf32},

@@ -95,3 +95,51 @@ def crop_bbox_dense(feats, boxes, out_h: int, out_w: int | None = None):
     with _full_f32():
         tmp = torch.einsum("boyh,bchw->bocyw", ry, feats.to(dt))
         return torch.einsum("bocyw,boxw->bocyx", tmp, rx)
+
+
+def uncrop_bbox(feats, boxes, out_h: int, out_w: int | None = None, fill_value: float = 0.0):
+    """The inverse of `crop_bbox`: paste each crop into its box on a canvas.
+    feats (N, C, hh, ww) crops, boxes (N, 4) -> (N, C, out_h, out_w), f32
+    (f64 for f64 crops). Canvas pixel (y, x) samples the crop at ((x/W -
+    x0)/w, (y/H - y0)/h), crop coordinate t * size with both corners clamped
+    into the crop (the reference's `uncrop_bbox`, bilinear.py:139-191); a
+    box of zero width or height divides by 1; pixels outside the box take
+    `fill_value`."""
+    out_w = out_w or out_h
+    hh, ww = feats.shape[-2:]
+    dt = torch.promote_types(feats.dtype, torch.float32)
+    boxes = boxes.to(dt)
+    x0, y0 = boxes[:, 0], boxes[:, 1]
+    bw, bh = boxes[:, 2] - x0, boxes[:, 3] - y0
+    one = torch.ones((), dtype=dt, device=boxes.device)
+    xs = _unit_linspace(out_w, boxes.device, dt)
+    ys = _unit_linspace(out_h, boxes.device, dt)
+    u = (xs[None, :] - x0[:, None]) / torch.where(bw == 0, one, bw)[:, None]  # (N, W)
+    v = (ys[None, :] - y0[:, None]) / torch.where(bh == 0, one, bh)[:, None]  # (N, H)
+
+    def axis_matrix(t, size):
+        coord = t * size
+        f = torch.floor(coord)
+        i0 = f.clamp(0, size - 1)
+        i1 = (i0 + 1).clamp(0, size - 1)
+        w1 = coord - f
+        eye0 = F.one_hot(i0.long(), size).to(dt)
+        eye1 = F.one_hot(i1.long(), size).to(dt)
+        return (1.0 - w1)[..., None] * eye0 + w1[..., None] * eye1
+
+    ry = axis_matrix(v, hh)  # (N, out_h, hh)
+    rx = axis_matrix(u, ww)  # (N, out_w, ww)
+    with _full_f32():
+        out = torch.einsum("nyh,nchw->ncyw", ry, feats.to(dt))
+        out = torch.einsum("ncyw,nxw->ncyx", out, rx)
+    inside = (((u >= 0) & (u <= 1))[:, None, None, :]
+              & ((v >= 0) & (v <= 1))[:, None, :, None])
+    return torch.where(inside, out, torch.as_tensor(fill_value, dtype=dt, device=out.device))
+
+
+def crop_bbox_flat(feats, boxes, box_to_feat, out_h: int, out_w: int | None = None):
+    """The reference's flat call (`crop_bbox_batch(feats, bbox, bbox_to_feats,
+    HH)`): feats (N, C, H, W), boxes (M, 4), box_to_feat (M,) the map of each
+    box -> (M, C, out_h, out_w) in the boxes' order."""
+    return crop_bbox(feats[torch.as_tensor(box_to_feat, device=feats.device).long()], boxes,
+                     out_h, out_w)

@@ -1,0 +1,9 @@
+"""Twins of the JAX package's root `tools/`, each run as `python -m
+aglayout_tpu_torch.tools.<name>`: `import_reference_artifacts` (the
+reference's vocab and co-occurrence matrix into a data directory),
+`train_evidence` (thousands of train steps on the learnable synthetic-scene
+corpus), `bench_train_table` (train-step throughput by size, batch and
+dtype), `quality_curve` (the evaluation report on the live train state
+every N steps) and `vg_scale_rehearsal` (corpus -> ETL -> co-occurrence ->
+the training loop). h5py is imported inside the functions that need it;
+the plots are drawn with PIL (`utils/plot.py`)."""

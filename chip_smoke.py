@@ -164,6 +164,26 @@ raises, and the run then exits non-zero without printing a result:
      for 3 steps and its checkpoint, and the ResNet-50 train step's crops/s
      with its FLOP count and share of the f32 peak. Its files (under
      build/chip_smoke_parallel/) are deleted when the phase ends.
+ 16. tools (`aglayout_tpu_torch/tools/`), the 64^2 model at its full width
+     (conv_dim 64, 3 ConvLSTM layers, 6 residual blocks, 179 classes),
+     B=8: (a) `train_evidence` for 200 steps (f32 with TF32 off, 32 corpus
+     batches, a log every 10 steps): its four files, finite metrics, the
+     D's loss and its attribute loss in the last quarter of logs below 0.95
+     and 0.8 of the first (0.83 and 0.71 in JAX's committed run, 0.84 and
+     0.71 in the port's; the reconstruction L1 0.88 and 1.05: it falls
+     later, and tests/test_torch_port_training_dynamics.py holds JAX's
+     small live check's 0.8 ratio on it on the card), and K1 and K2
+     exactly 3 launches each over the run (the sample grid's eval forward:
+     rec, rand, shift; none in the steps); (b)
+     `quality_curve.run_curve` on the synthetic stream, 20 steps, an
+     evaluation point at 0, 10 and 20 (`evaluate_run`, 1 batch): JAX's row
+     keys, finite values, the train iterator drawn 20 times (none
+     dropped), and at every point K1 and K2 three launches an eval forward
+     and none in the steps; (c) `bench_train_table` for 64:8 bf16 through
+     its subprocess: one row, finite steps/s, the card's name; (d)
+     `import_reference_artifacts` on a vocab and a `torch.save`d matrix
+     that the phase writes: the .npy equals the matrix. Its files (under
+     build/chip_smoke_tools/) are deleted when the phase ends.
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -2129,6 +2149,188 @@ def phase_classifiers(smi: str, root):
     set_tf32(True)
 
 
+# a quality curve's row (the JAX package's tools/quality_curve.py)
+CURVE_KEYS = ("step", "fid_rand", "fid_shift", "fid_extractor", "inception_score",
+              "lpips_diversity", "consistency_background_l1", "consistency_foreground_l1",
+              "consistency_random_pair_l1", "attr_precision", "attr_recall", "edit_success_rate",
+              "eval_wall_s")
+# the JAX package's committed 64^2 evidence (artifacts/train_evidence/
+# metrics.jsonl) over the 200 steps phase 16 (a) runs: the means of the
+# first and last quarters of its 20 logs. The port's 3,000-step run gave
+# the same ratios for the D's losses (0.84 and 0.71), and its
+# reconstruction L1 rose over its first 300 steps: that falls later
+JAX_FIRST_200 = {"D/loss": (10.613910102844239, 8.853595161437989),
+                 "D/object_att_cls_loss": (1.294143795967102, 0.9150449395179748),
+                 "G/rec_img": (0.6148820638656616, 0.5410331726074219)}
+# the most the last quarter of each D loss may be of its first in phase 16 (a)
+D_FALLS = {"D/loss": 0.95, "D/object_att_cls_loss": 0.8}
+
+
+def phase_tools(smi: str):
+    """The tools' twins (`aglayout_tpu_torch/tools/`) on the card at the
+    64^2 model's full width, B=8: (a) `train_evidence`, (b) `quality_curve`'s
+    core on the synthetic stream, (c) `bench_train_table` through its
+    subprocess, (d) `import_reference_artifacts`."""
+    import shutil
+    from pathlib import Path
+
+    from aglayout_tpu_torch.config import config_for
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch, synthetic_cooccurrence
+    from aglayout_tpu_torch.data.vocab import attribute_pos_weight
+    from aglayout_tpu_torch.parallel import Group, make_sharded_train_step
+    from aglayout_tpu_torch.test import synthetic_loader
+    from aglayout_tpu_torch.tools import (
+        bench_train_table,
+        import_reference_artifacts,
+        quality_curve,
+        train_evidence,
+    )
+    from aglayout_tpu_torch.train import __main__ as entry
+    from aglayout_tpu_torch.train.state import create_train_state
+    from aglayout_tpu_torch.train.step import make_train_step
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_tools"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        # ---- (a) train_evidence: 200 steps, f32 with TF32 off
+        out = root / "evidence"
+        launch_counts(reset=True)
+        t1 = time.perf_counter()
+        summary = train_evidence.run(train_evidence.parser().parse_args(
+            ["--steps", "200", "--corpus_batches", "32", "--log_every", "10", "--out", str(out),
+             "--device", "cuda"]))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t1
+        launches = {k: v for k, v in launch_counts().items() if v}
+        with open(out / "metrics.jsonl") as f:
+            rows = [json.loads(line) for line in f]
+        finite = all(np.isfinite(v) for r in rows for v in r.values())
+        files = sorted(p.name for p in out.iterdir())
+        quarter = len(rows) // 4
+        quarters = {k: (np.mean([r[k] for r in rows[:quarter]]),
+                        np.mean([r[k] for r in rows[-quarter:]])) for k in JAX_FIRST_200}
+        compare = ", ".join(
+            f"{k} {quarters[k][0]:.4f} -> {quarters[k][1]:.4f} against "
+            f"{JAX_FIRST_200[k][0]:.4f} -> {JAX_FIRST_200[k][1]:.4f}" for k in JAX_FIRST_200)
+        log(f"[tools] (a) train_evidence 64^2 B=8 f32 (TF32 off), 200 steps in {run_s:.1f} s "
+            f"({summary['steps_per_sec']:.3f} steps/s, {1e3 / summary['steps_per_sec']:.1f} "
+            f"ms/step with the logging and the sample grid's forward): rec L1 first window "
+            f"{summary['rec_l1_first_window']:.4f}, last {summary['rec_l1_last_window']:.4f} "
+            f"(reduction {summary['rec_l1_reduction']:.3f}); the first and last quarters of "
+            f"the logs, the port's against the JAX package's committed run: {compare}; files "
+            f"{files}; launches over the run (the steps and the sample grid's eval forward) "
+            f"{launches} | {smi}")
+        if files != ["loss_curves.png", "metrics.jsonl", "samples.png", "summary.json"] \
+                or len(rows) != 20 or not finite or summary["card"] != smi:
+            raise AssertionError("tools (a): files, logged rows or card off")
+        for k, bar in D_FALLS.items():
+            if not quarters[k][1] < bar * quarters[k][0]:
+                raise AssertionError(f"tools (a): {k} did not fall below {bar} of its start: "
+                                     f"{quarters[k]}")
+        if launches != {k: 3 * n for k, n in PATH64.items()}:
+            raise AssertionError(f"tools (a): launches {launches}, expected three forwards' "
+                                 f"{PATH64} (none in the steps)")
+
+        # ---- (b) quality_curve's core: 20 steps, an evaluation point every 10
+        cfg = config_for(64, batch_size=8, max_objects=O)
+        state = create_train_state(cfg, "cuda", seed=cfg.seed)
+        matrix = synthetic_cooccurrence(np.random.RandomState(0), cfg.num_classes,
+                                        cfg.attribute_dim)
+        group = Group()
+        step_fn = make_sharded_train_step(
+            make_train_step(cfg, state.models, matrix, attribute_pos_weight()), group)
+        drawn, forwards, points = [0], [0], []
+        drop = ("masks", "masks_shift") if cfg.device_masks else ()  # as the loop's
+
+        def train_iter():
+            for b in entry.synthetic_stream(cfg):
+                drawn[0] += 1
+                yield batch_to_torch(group.rows({k: v for k, v in b.items() if k not in drop}),
+                                     "cuda")
+
+        def on_row(row, curve):
+            torch.cuda.synchronize()
+            points.append((row["step"], forwards[0],
+                           {k: v for k, v in launch_counts(reset=True).items() if v}))
+            forwards[0] = 0
+
+        hook = state.models.g.register_forward_hook(
+            lambda m, i, o: forwards.__setitem__(0, forwards[0] + (not m.training)))
+        launch_counts(reset=True)
+        t1 = time.perf_counter()
+        try:
+            _, curve = quality_curve.run_curve(
+                cfg, state, step_fn, train_iter(), lambda: synthetic_loader(cfg), steps=20,
+                eval_every=10, eval_batches=1, work_dir=str(root / "curve"), device="cuda",
+                on_row=on_row)
+        finally:
+            hook.remove()
+        run_s = time.perf_counter() - t1
+        finite = all(np.isfinite(v) for r in curve for k, v in r.items()
+                     if k != "fid_extractor" and v is not None)
+        log(f"[tools] (b) quality_curve 64^2 B=8, 20 steps, evaluation points "
+            f"{[r['step'] for r in curve]} in {run_s:.1f} s (eval s "
+            f"{[r['eval_wall_s'] for r in curve]}); the train iterator "
+            f"drawn {drawn[0]} times; per point (step, eval forwards, launches since the last): "
+            f"{points}; fid_rand {[round(r['fid_rand'], 3) for r in curve]}, lpips_diversity "
+            f"{[round(r['lpips_diversity'], 6) for r in curve]}")
+        if [r["step"] for r in curve] != [0, 10, 20] or not finite \
+                or any(tuple(r) != CURVE_KEYS for r in curve):
+            raise AssertionError("tools (b): rows, keys or values off")
+        if drawn[0] != 20:
+            raise AssertionError(f"tools (b): the train iterator drawn {drawn[0]} times for 20 "
+                                 "steps")
+        for step_no, n, counts in points:
+            if n < 1 or counts != {k: 3 * n * c for k, c in PATH64.items()}:
+                raise AssertionError(f"tools (b): at step {step_no}, {n} eval forwards launched "
+                                     f"{counts} (expected three a forward of {PATH64}, none in "
+                                     "the steps)")
+        del state, step_fn
+        torch.cuda.empty_cache()
+
+        # ---- (c) bench_train_table: one configuration through its subprocess
+        t1 = time.perf_counter()
+        table = bench_train_table.table("64:8", str(root / "bench.json"), 5, "cuda",
+                                        computes=("bf16",))
+        with open(root / "bench.json") as f:
+            written = json.load(f)
+        log(f"[tools] (c) bench_train_table 64:8 bf16 in a subprocess, "
+            f"{time.perf_counter() - t1:.1f} s: {table}; keys {sorted(written)}")
+        if len(table) != 1 or not np.isfinite(table[0]["steps_per_sec"]) \
+                or table[0]["steps_per_sec"] <= 0 or table[0]["card"] != smi \
+                or written.get("steps_per_sec_64_b8_bf16") != table[0]["steps_per_sec"]:
+            raise AssertionError("tools (c): the row is off")
+
+        # ---- (d) import_reference_artifacts on files this phase writes
+        ref = root / "reference"
+        ref.mkdir()
+        vocab = {}
+        for kind, n in (("object", 179), ("attribute", 106), ("pred", 46)):
+            names = [f"{kind}{i}" for i in range(n)]
+            vocab[f"{kind}_idx_to_name"] = names
+            vocab[f"{kind}_name_to_idx"] = {name: i for i, name in enumerate(names)}
+        with open(ref / "vocab.json", "w") as f:
+            json.dump(vocab, f)
+        matrix = torch.randint(0, 100, (179, 106), generator=torch.Generator().manual_seed(0))
+        torch.save(matrix.float(), ref / "matrix_obj_vs_att.pt")
+        import_reference_artifacts.main(["--vocab", str(ref / "vocab.json"), "--matrix",
+                                         str(ref / "matrix_obj_vs_att.pt"), "--out",
+                                         str(root / "vg")])
+        got = np.load(root / "vg" / "matrix_obj_vs_att.npy")
+        with open(root / "vg" / "vocab.json") as f:
+            same_vocab = json.load(f) == vocab
+        log(f"[tools] (d) import_reference_artifacts: matrix {got.shape} {got.dtype} equal "
+            f"{np.array_equal(got, matrix.float().numpy())}, vocab equal {same_vocab}")
+        if not np.array_equal(got, matrix.float().numpy()) or got.dtype != np.float32 \
+                or not same_vocab:
+            raise AssertionError("tools (d): the imported files differ")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[tools] phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     smi = phase_device()
     phase_build()
@@ -2162,6 +2364,7 @@ def main() -> int:
     phase_trainer(smi)
     phase_infer(smi)
     phase_parallel(smi)
+    phase_tools(smi)
     for name, row in rows.items():
         row["launches"] = launches[name]
     print(json.dumps({"kernels": list(rows.values())}))
