@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from aglayout_tpu_torch.data.synthetic import batch_to_torch
-from aglayout_tpu_torch.eval.resnet import ResNet50
+from aglayout_tpu_torch.eval.resnet import ResNet50, flax_init
 from aglayout_tpu_torch.ops.bilinear import crop_bbox_dense
 from aglayout_tpu_torch.train.losses import cross_entropy
 
@@ -37,12 +37,14 @@ def crops_of(imgs, boxes, crop_size: int):
 def make_crop_classifier(num_classes: int, crop_size: int = 224, lr: float = 1e-4, init=None, *,
                          device):
     """(ResNet-50 on `device` in training mode, its Adam(lr), crop_size): the
-    weights from the `state_dict` `init`, else torch's initialisers from
-    seed 0 (a fresh model starts each block's last BN at scale 0)."""
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(0)
+    weights from the `state_dict` `init`, else drawn as flax draws JAX's
+    (`resnet.flax_init`) from a generator seeded 0."""
+    with torch.device("meta"):  # no draw: every tensor is set below
         model = ResNet50(num_classes)
-    if init is not None:
+    model = model.to_empty(device="cpu")
+    if init is None:
+        flax_init(model, torch.Generator().manual_seed(0))
+    else:
         model.load_state_dict(init)
     model = model.to(device).train()
     return model, torch.optim.Adam(model.parameters(), lr=lr), crop_size

@@ -13,7 +13,10 @@ the arithmetic is flax's, as JAX's model computes it:
     one; momentum 0.1 in torch's convention (flax's 0.9); eps 1e-5;
   * the stride sits on the 3x3 conv; a projection shortcut (1x1 conv and
     BN) wherever a block changes the shape;
-  * a fresh model starts the last BN of each block at scale 0;
+  * a fresh model is drawn as flax draws one (`flax_init`): every conv
+    and the fc kernel from a normal cut at +-2 sigma and rescaled to
+    variance 1 / fan_in (`lecun_normal`), the fc bias 0, every BN at
+    scale 1 and bias 0 but the last of each block, at scale 0;
   * the stem's max pool is 3x3 / 2 with padding 1.
 
 Inputs are NCHW crops.
@@ -26,6 +29,10 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+# the std of a standard normal cut at +-2 (flax's `variance_scaling` divides by it)
+TRUNCATED_STD = 0.87962566103423978
 
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
@@ -93,3 +100,23 @@ class ResNet50(nn.Module):
         for i in range(self.stages):
             x = getattr(self, f"layer{i + 1}")(x)
         return self.fc(x.mean((2, 3)))
+
+
+@torch.no_grad()
+def flax_init(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw a fresh `ResNet50` (on the CPU) from `generator` as flax draws
+    JAX's: each conv and fc weight from `variance_scaling(1, "fan_in",
+    "truncated_normal")`, the fc bias 0, each BN fresh (running mean 0 and
+    variance 1, scale 1, bias 0) but each block's `bn3` at scale 0."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            std = m.weight[0].numel() ** -0.5 / TRUNCATED_STD
+            nn.init.trunc_normal_(m.weight, 0.0, std, -2 * std, 2 * std, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    for m in model.modules():
+        if isinstance(m, Bottleneck):
+            m.bn3.weight.zero_()
+    return model

@@ -43,6 +43,17 @@ class MaskedBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
 
+    @torch.no_grad()
+    def reset_parameters(self):
+        """A fresh layer's state, JAX's and torch's BatchNorm's: running mean
+        0, running variance 1, no batch tracked, weight 1 and bias 0."""
+        self.running_mean.zero_()
+        self.running_var.fill_(1.0)
+        self.num_batches_tracked.zero_()
+        if self.affine:
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
     def eval_affine(self):
         """(a, b) such that eval-mode BN(x) == a * x + b (per channel), f32."""
         a = torch.rsqrt(self.running_var + self.eps)

@@ -16,6 +16,7 @@ import torch.nn as nn
 
 from aglayout_tpu_torch.config import Config
 from aglayout_tpu_torch.models import build_discriminators, build_generator
+from aglayout_tpu_torch.models.norms import MaskedBatchNorm
 
 NETS = ("g", "d_image", "d_object", "d_att")  # JAX TrainState's names
 
@@ -43,8 +44,13 @@ class TrainState:
 
 def build_models(cfg: Config, device, seed: int = 0) -> Models:
     """The four nets of `cfg` on `device`, in training mode: the generator's
-    weights drawn from `seed`, the discriminators' from seed + 1."""
+    weights drawn from `seed`, the discriminators' from seed + 1. Every
+    batch norm of the generator starts where JAX's does (mean 0, variance
+    1, weight 1, bias 0), not at `build_generator`'s drawn serving state."""
     g = build_generator(cfg, device, seed=seed).train()
+    for m in g.modules():
+        if isinstance(m, MaskedBatchNorm):
+            m.reset_parameters()
     return Models(g, *(d.train() for d in build_discriminators(cfg, device, seed=seed + 1)))
 
 

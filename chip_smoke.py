@@ -93,7 +93,11 @@ raises, and the run then exits non-zero without printing a result:
      it marks), peak memory; every metric finite, all four nets' params
      moved, and no kernel of the port launched over the steps; then one eval
      `generate` of the trained bf16 generator, which must launch the 128^2
-     path's kernels as phase 4's model does.
+     path's kernels as phase 4's model does. Each fresh state made on the
+     card has every generator batch norm at JAX's fresh values (running
+     mean 0, variance 1, weight 1, bias 0, no batch tracked; constants, no
+     JAX), and `build_generator` on the card keeps its drawn BN state (no
+     BN at those values), which the generate and kernel phases exercise.
  13. trainer, the 128^2 model at its full width, B=8, bf16, through the
      port's train entry points (no kernel of the port in a train step):
      (a) `train/loop.train` on the synthetic stream for 12 steps (log_step
@@ -158,7 +162,9 @@ raises, and the run then exits non-zero without printing a result:
      checkpoint; (e) on the seeded synthetic stream at the 128^2 model's
      width (179 classes, 106 attributes, B=8, O=10), f32 with TF32 off:
      `train_crop_classifier` at full depth for 3 steps on 224^2 crops
-     (finite losses), ResNet-50's forward on the card against the CPU on 4
+     (finite losses), a fresh ResNet-50 drawn as flax draws JAX's (each
+     conv's and fc's weight std within 10 % of sqrt(1 / fan_in), the fc
+     bias 0), ResNet-50's forward on the card against the CPU on 4
      crops with seeded weights (1e-4), `test_crop_classifier` on two
      `gen_pickle` batches, `train_attribute_classifier` (the sixth block)
      for 3 steps and its checkpoint, and the ResNet-50 train step's crops/s
@@ -172,7 +178,8 @@ raises, and the run then exits non-zero without printing a result:
      and 0.8 of the first (0.83 and 0.71 in JAX's committed run, 0.84 and
      0.71 in the port's; the reconstruction L1 0.88 and 1.05: it falls
      later, and tests/test_torch_port_training_dynamics.py holds JAX's
-     small live check's 0.8 ratio on it on the card), and K1 and K2
+     small live check's 0.8 ratio on it on the card; the two D ratios are
+     printed beside those of the run from the drawn BN state), and K1 and K2
      exactly 3 launches each over the run (the sample grid's eval forward:
      rec, rand, shift; none in the steps); (b)
      `quality_curve.run_curve` on the synthetic stream, 20 steps, an
@@ -1322,6 +1329,28 @@ def phase_discriminators(smi: str):
     set_tf32(True)
 
 
+# JAX's fresh batch-norm state (aglayout_tpu/models/norms.py's initialisers)
+JAX_FRESH_BN = {"running_mean": 0.0, "running_var": 1.0, "num_batches_tracked": 0,
+                "weight": 1.0, "bias": 0.0}
+
+
+def bn_at_jax_fresh(g) -> list:
+    """For each batch norm of generator `g`: whether every one of its
+    tensors holds JAX's fresh value (`JAX_FRESH_BN`), and, where not,
+    whether none of its running statistics and affines does (drawn)."""
+    from aglayout_tpu_torch.models.norms import MaskedBatchNorm
+
+    out = []
+    for m in g.modules():
+        if isinstance(m, MaskedBatchNorm):
+            sd = m.state_dict()
+            out.append(("fresh" if all(bool((v == JAX_FRESH_BN[k]).all()) for k, v in sd.items())
+                        else "drawn" if all(not bool((v == JAX_FRESH_BN[k]).any())
+                                            for k, v in sd.items() if k != "num_batches_tracked")
+                        else "mixed"))
+    return out
+
+
 def train_params_raw(state):
     """Each net's params, copied."""
     return {name: [p.detach().clone() for p in m.parameters()] for name, m in state.models.items()}
@@ -1331,6 +1360,7 @@ def phase_train(smi: str):
     from aglayout_tpu_torch.bench import TRAIN_SMALL, layouts, train_inputs
     from aglayout_tpu_torch.config import config_for
     from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.models import build_generator
     from aglayout_tpu_torch.train.compare import compare_steps, step_draws
     from aglayout_tpu_torch.train.state import create_train_state
     from aglayout_tpu_torch.train.step import make_train_step
@@ -1356,6 +1386,14 @@ def phase_train(smi: str):
         batch, matrix, pw = train_inputs(cfg, 8)
         batch = batch_to_torch(batch, "cuda")
         state = create_train_state(cfg, "cuda", seed=0)
+        bns = bn_at_jax_fresh(state.models.g)
+        drawn = bn_at_jax_fresh(build_generator(cfg, "cuda", seed=0))
+        log(f"[train] 128^2 full width {label}: a fresh train state's {len(bns)} generator "
+            f"batch norms, {bns.count('fresh')} at JAX's fresh values {JAX_FRESH_BN}; "
+            f"build_generator's {len(drawn)}, {drawn.count('drawn')} drawn")
+        if not bns or bns.count("fresh") != len(bns) or drawn.count("drawn") != len(bns):
+            raise AssertionError(f"train state {label}: generator BN state {bns}, "
+                                 f"build_generator's {drawn}")
         before = train_params_raw(state)
         step = make_train_step(cfg, state.models, matrix, pw)
         launch_counts(reset=True)
@@ -2095,6 +2133,15 @@ def phase_classifiers(smi: str, root):
     losses = [float(x) for x in re.findall(r"loss ([-0-9.e]+)", "".join(tee.lines("cls iter")))]
     # the train step's rate at the loader's batch: B * O crops
     net, opt, _ = classifier.make_crop_classifier(cfg.num_classes, cs, device="cuda")
+    # fresh, it is drawn as flax draws JAX's: weight std sqrt(1 / fan_in), fc bias 0
+    stds = [m.weight.std().item() * m.weight[0].numel() ** 0.5 for m in net.modules()
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear))]
+    fc_bias = net.fc.bias.abs().max().item()
+    log(f"[parallel] (e) a fresh ResNet-50 on the card: {len(stds)} conv and fc weights, std "
+        f"over sqrt(1 / fan_in) {min(stds):.4f} to {max(stds):.4f} (tol 10 %), fc bias max "
+        f"|.| {fc_bias}")
+    if len(stds) != 54 or max(abs(r - 1) for r in stds) > 0.1 or fc_bias != 0.0:
+        raise AssertionError("parallel (e): a fresh ResNet-50 is not drawn as flax draws it")
     batch = batch_to_torch(next(entry.synthetic_stream(cfg)), "cuda")
     crops = classifier.crops_of(batch["imgs"], batch["boxes"], cs)
 
@@ -2164,6 +2211,10 @@ JAX_FIRST_200 = {"D/loss": (10.613910102844239, 8.853595161437989),
                  "G/rec_img": (0.6148820638656616, 0.5410331726074219)}
 # the most the last quarter of each D loss may be of its first in phase 16 (a)
 D_FALLS = {"D/loss": 0.95, "D/object_att_cls_loss": 0.8}
+# those ratios in phase 16 (a) from the generator's drawn BN state, before
+# a fresh train state started at JAX's (the last chip_smoke.py run on an
+# NVIDIA H100 80GB HBM3 at 700 W before the change)
+DRAWN_BN_D_RATIOS = {"D/loss": 0.832, "D/object_att_cls_loss": 0.717}
 
 
 def phase_tools(smi: str):
@@ -2221,6 +2272,9 @@ def phase_tools(smi: str):
             f"the logs, the port's against the JAX package's committed run: {compare}; files "
             f"{files}; launches over the run (the steps and the sample grid's eval forward) "
             f"{launches} | {smi}")
+        ratios = {k: round(float(quarters[k][1] / quarters[k][0]), 4) for k in D_FALLS}
+        log(f"[tools] (a) the D losses' last quarter over their first: {ratios}; from the "
+            f"drawn BN state {DRAWN_BN_D_RATIOS}")
         if files != ["loss_curves.png", "metrics.jsonl", "samples.png", "summary.json"] \
                 or len(rows) != 20 or not finite or summary["card"] != smi:
             raise AssertionError("tools (a): files, logged rows or card off")

@@ -281,3 +281,29 @@ def test_train_from_the_corpus(vg_dirs, tmp_path, capsys):
     path = "native" if native.load_lib() is not None else "numpy"
     assert f"{path} batch path" in out
     assert all(torch.isfinite(v) for k, v in metrics.items() if k != "images")
+
+
+def test_download_vg_script_equals_jax():
+    """`data/download_vg.sh` is JAX's script, line for line (its `set`,
+    `mkdir`, URLs, file list and unzip steps) but the last, which names the
+    port's ETL modules; bash parses it (`-n`: nothing runs, nothing is
+    fetched)."""
+    import importlib.util
+    import re
+    import subprocess
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    paths = [os.path.join(root, pkg, "data", "download_vg.sh")
+             for pkg in ("aglayout_tpu", "aglayout_tpu_torch")]
+    jax_lines, port_lines = ([line.rstrip("\n") for line in open(p)] for p in paths)
+    assert port_lines[:-1] == jax_lines[:-1]
+    for pattern in (r"^set -euo pipefail$", r'^VG_DIR="\$\{1:-data/vg\}"$', r"^mkdir -p ",
+                    r'^BASE="https://', r'^VISUALGENOME="https://', r"^for f in objects\.json",
+                    r"^\s+wget -c "):
+        assert any(re.match(pattern, line) for line in port_lines), pattern
+    modules = re.findall(r"python -m ([\w.]+)", port_lines[-1])
+    assert modules == ["aglayout_tpu_torch.data.split_vg", "aglayout_tpu_torch.data.preprocess_vg"]
+    assert port_lines[-1] == jax_lines[-1].replace("aglayout_tpu.", "aglayout_tpu_torch.")
+    assert all(importlib.util.find_spec(m) is not None for m in modules)
+    assert os.access(paths[1], os.X_OK)
+    subprocess.run(["bash", "-n", paths[1]], check=True)

@@ -30,7 +30,7 @@ from aglayout_tpu.eval import inception_score as jax_is
 from aglayout_tpu.infer.generate import AttributeMetrics as JaxAttributeMetrics
 from aglayout_tpu_torch.eval import consistency, fid, inception_score
 from aglayout_tpu_torch.infer.generate import AttributeMetrics
-from tests.torch_port_common import jax_train_state, train_configs
+from tests.torch_port_common import drawn_train_state, jax_train_state, train_configs
 
 torch.set_num_threads(1)
 
@@ -184,10 +184,9 @@ def pickle_dirs(tmp_path_factory):
     from aglayout_tpu.eval.gen_pickle import dump_generation_pickles as jax_dump
     from aglayout_tpu_torch.data.synthetic import synthetic_batch
     from aglayout_tpu_torch.eval.gen_pickle import dump_generation_pickles
-    from aglayout_tpu_torch.train.state import create_train_state
 
     cfg, jcfg = train_configs(64, batch_size=2, max_objects=3)
-    models = create_train_state(cfg, "cpu", seed=0).models
+    models = drawn_train_state(cfg, "cpu", seed=0).models
     jmodels, jstate = jax_train_state(models, jcfg)
     rng = np.random.RandomState(0)
     batches = [synthetic_batch(rng, 2, 3, 64, cfg.num_classes, cfg.attribute_dim)

@@ -1023,6 +1023,42 @@ def test_generate_after_a_train_step_takes_its_kernels(cuda):
     assert torch.isfinite(img.float()).all()
 
 
+def test_fresh_train_state_on_card_starts_at_jax_bn_state(cuda):
+    """A fresh state made on the card at the 64^2 published widths, B=2:
+    every generator BN at JAX's fresh values (running mean 0, variance 1,
+    weight 1, bias 0, no batch tracked), and one f32 step from it (TF32
+    off) gives finite metrics; `build_generator` on the card keeps its
+    drawn BN state."""
+    from aglayout_tpu_torch.bench import train_inputs
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.models.norms import MaskedBatchNorm
+    from aglayout_tpu_torch.train.state import create_train_state
+    from aglayout_tpu_torch.train.step import make_train_step
+
+    cfg = config_for(64, batch_size=2)
+    state = create_train_state(cfg, cuda, seed=0)
+    bns = [m for m in state.models.g.modules() if isinstance(m, MaskedBatchNorm)]
+    assert bns
+    for m in bns:
+        assert m.running_mean.is_cuda and not m.running_mean.any()
+        assert torch.equal(m.running_var, torch.ones_like(m.running_var))
+        assert m.num_batches_tracked.item() == 0
+        if m.affine:
+            assert torch.equal(m.weight.detach(), torch.ones_like(m.weight))
+            assert not m.bias.any()
+    batch, matrix, pos_weight = train_inputs(cfg, cfg.batch_size, 0)
+    state, metrics = make_train_step(cfg, state.models, matrix, pos_weight)(
+        state, batch_to_torch(batch, cuda))
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(v).all() for k, v in metrics.items() if k != "images")
+    assert all(m.num_batches_tracked.item() >= 1 for m in bns)
+    drawn = [m for m in build_generator(cfg, cuda, seed=0).modules()
+             if isinstance(m, MaskedBatchNorm)]
+    assert all(m.running_var.is_cuda and not torch.equal(m.running_var,
+                                                         torch.ones_like(m.running_var))
+               for m in drawn)
+
+
 # ---- the trainer (train/loop.py, utils/checkpoint.py) on the card
 
 

@@ -301,7 +301,8 @@ def _evidence_argv(out):
 
 def test_train_evidence_files_and_keys(tmp_path):
     """At small widths, a few steps: the four files, the JAX tool's keys in
-    metrics.jsonl and summary.json (the card field besides)."""
+    metrics.jsonl and summary.json (the card and deterministic fields
+    besides)."""
     from aglayout_tpu_torch.bench import TRAIN_SMALL
     from aglayout_tpu_torch.tools import train_evidence
 
@@ -316,7 +317,8 @@ def test_train_evidence_files_and_keys(tmp_path):
     rows = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
     assert [r["step"] for r in rows] == [2, 4, 6]
     assert all(list(r) == list(jax_row) for r in rows)
-    assert list(summary) == list(jax_summary) + ["card"]
+    assert list(summary) == list(jax_summary) + ["card", "deterministic"]
+    assert summary["deterministic"] is False
     assert summary["final"] == rows[-1] and summary["steps"] == 6
     assert json.loads((tmp_path / "summary.json").read_text()) == summary
     assert all(np.isfinite(v) for v in rows[-1].values())
@@ -325,6 +327,26 @@ def test_train_evidence_files_and_keys(tmp_path):
     from PIL import Image
 
     assert Image.open(tmp_path / "samples.png").size == (3 * 64, 3 * 64)
+
+
+def test_train_evidence_deterministic_repeats_itself(tmp_path):
+    """`--deterministic`: the steps under torch's deterministic algorithms,
+    two runs' metrics equal, the summary says so, and the mode is off
+    again after the run."""
+    import torch
+
+    from aglayout_tpu_torch.bench import TRAIN_SMALL
+    from aglayout_tpu_torch.tools import train_evidence
+
+    small = {k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"}
+    runs = []
+    for name in ("a", "b"):
+        argv = _evidence_argv(tmp_path / name) + ["--deterministic"]
+        runs.append(train_evidence.run(train_evidence.parser().parse_args(argv), **small))
+        assert not torch.are_deterministic_algorithms_enabled()
+    assert all(r["deterministic"] is True for r in runs)
+    assert (tmp_path / "a" / "metrics.jsonl").read_text() == \
+        (tmp_path / "b" / "metrics.jsonl").read_text()
 
 
 def test_train_evidence_asserts_improvement(tmp_path):
@@ -336,3 +358,58 @@ def test_train_evidence_asserts_improvement(tmp_path):
     with pytest.raises(AssertionError, match="reconstruction did not improve"):
         train_evidence.main(_evidence_argv(tmp_path), learning_rate=0.0, **small)
     assert (tmp_path / "summary.json").exists()  # written before the check
+
+
+@pytest.mark.parametrize("mode", ["default", "deterministic"])
+def test_step_determinism_on_the_host(tmp_path, mode):
+    """At small widths on the CPU, where a step repeats itself: the two runs
+    are bit-equal at every checked step in both modes, with the same
+    fingerprints and no param difference; the JSON is written; the
+    deterministic mode is off again afterwards."""
+    import torch
+
+    from aglayout_tpu_torch.bench import TRAIN_SMALL
+    from aglayout_tpu_torch.tools import step_determinism
+
+    small = {k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"}
+    out = step_determinism.main(["--mode", mode, "--steps", "4", "--check_at", "2", "4",
+                                 "--batch_size", "3", "--corpus_batches", "2",
+                                 "--out", str(tmp_path / "det.json"), "--device", "cpu"], **small)
+    assert out["bit_equal"] == {"2": True, "4": True}
+    assert out["max_param_diff"] == {"2": 0.0, "4": 0.0}
+    assert all(a == b and len(a) == 64 for a, b in out["fingerprints"].values())
+    assert out["fingerprints"]["2"] != out["fingerprints"]["4"]
+    assert len(out["ms_per_step"]) == 2 and all(t > 0 for t in out["ms_per_step"])
+    assert json.loads((tmp_path / "det.json").read_text()) == out
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_compare_evidence_reads_the_committed_runs(tmp_path):
+    """On the committed runs (JAX's and the port's): each run's first and
+    last windows and reduction are those its summary.json gives, a 10-log
+    mean is the mean of those logs, a step past the run's end is null, and
+    a run against itself shares every line, against another none."""
+    from aglayout_tpu_torch.tools import compare_evidence
+
+    dirs = [os.path.join(REPO, "artifacts", d) for d in ("train_evidence",
+                                                         "torch_train_evidence")]
+    out = compare_evidence.main(dirs + [dirs[0], "--at", "200", "20000", "--out",
+                                        str(tmp_path / "cmp.json")])
+    assert json.loads((tmp_path / "cmp.json").read_text()) == out
+    for d, run in zip(dirs, out["runs"]):
+        with open(os.path.join(d, "summary.json")) as f:
+            summary = json.load(f)
+        assert run["steps"] == summary["steps"]
+        assert run["first_window"] == summary["rec_l1_first_window"]
+        assert run["last_window"] == summary["rec_l1_last_window"]
+        assert run["reduction"] == summary["rec_l1_reduction"]
+        rows = [json.loads(line) for line in open(os.path.join(d, "metrics.jsonl"))]
+        end = [r["step"] for r in rows].index(200) + 1
+        assert run["mean_of_10_logs_at"]["200"] == float(np.mean(
+            [r["G/rec_img"] for r in rows[end - 10:end]]))
+        assert run["mean_of_10_logs_at"]["20000"] is None
+        assert run["reduction_if_ended_at"]["20000"] is None
+    with open(os.path.join(dirs[0], "metrics.jsonl")) as f:
+        n_jax = len(f.read().splitlines())
+    assert out["runs"][1]["lines_equal_to_the_first_run"] == 0
+    assert out["runs"][2]["lines_equal_to_the_first_run"] == n_jax

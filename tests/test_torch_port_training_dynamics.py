@@ -6,10 +6,10 @@ tests/test_training_dynamics.py.
     60 steps must average below 0.8 of the first 8's, at the JAX test's
     config on the card (`gpu`), and at the CPU tests' small widths over 40
     steps here;
-  * the committed card run: artifacts/torch_train_evidence/ (3,000 steps
-    at the reference's 64^2 config, `python -m
-    aglayout_tpu_torch.tools.train_evidence`), its summary held to the JAX
-    test's bar.
+  * the committed card run: artifacts/torch_train_evidence/ (8,000 steps
+    at the reference's 64^2 config from a fresh state, `python -m
+    aglayout_tpu_torch.tools.train_evidence --steps 8000 --deterministic`),
+    its summary held to the JAX test's bar (at least 3,000 steps).
 
 The file imports no JAX, so it runs where only PyTorch is installed:
 `python -m pytest --noconftest tests/test_torch_port_training_dynamics.py`.

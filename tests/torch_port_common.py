@@ -135,6 +135,19 @@ def sd_numpy(module):
     return {k: v.detach().cpu().numpy().copy() for k, v in module.state_dict().items()}
 
 
+def drawn_train_state(cfg, device, seed: int = 0):
+    """`create_train_state(cfg, device, seed)` with the generator redrawn by
+    `init_weights` from `seed`, as `build_generator` draws it: the same
+    weights, with non-trivial BN running statistics and affines (a fresh
+    train state starts them at JAX's 0, 1, 1, 0), so that a parity test
+    exercises them."""
+    from aglayout_tpu_torch.train.state import create_train_state
+
+    state = create_train_state(cfg, device, seed=seed)
+    init_weights(state.models.g, torch.Generator().manual_seed(seed))
+    return state
+
+
 def jax_train_state(models, jcfg, seed: int = 0):
     """The JAX `TrainState` holding the port's `models`' weights (through
     the JAX package's own importers), fresh Adam states and key `seed`."""
@@ -196,9 +209,7 @@ def eval_models_pair(cfg, jcfg, seed: int = 0):
     as a trained or checkpointed D holds them (freshly drawn ones make
     sigma = u^T W v a sum that cancels, which two f32 implementations round
     7e-5 apart)."""
-    from aglayout_tpu_torch.train.state import create_train_state
-
-    models = create_train_state(cfg, "cpu", seed=seed).models
+    models = drawn_train_state(cfg, "cpu", seed=seed).models
     redraw_weights(models.g, seed)
     with torch.no_grad():
         models.d_att(torch.randn(4, 3, 32, 32, generator=torch.Generator().manual_seed(0)), True)
@@ -322,8 +333,8 @@ class StepCase:
     draws, at `image_size` (`cfg_kw` overrides `train_configs`' fields):
     the JAX step jitted once (`jstep`), the JAX
     states before and after (`js0`, `js1`), the port's state after
-    (`state1`), both metrics, and `fresh()`, the port's state before (for
-    further steps in the port)."""
+    (`state1`), both metrics, and `fresh()`, the port's state before
+    (`drawn_train_state`, seed 0; for further steps in the port)."""
 
     def __init__(self, image_size: int, **cfg_kw):
         import functools
@@ -333,12 +344,11 @@ class StepCase:
 
         from aglayout_tpu.train.step import make_train_step as jax_make_train_step
         from aglayout_tpu_torch.data.synthetic import batch_to_torch
-        from aglayout_tpu_torch.train.state import create_train_state
         from aglayout_tpu_torch.train.step import make_train_step
 
         self.cfg, self.jcfg = train_configs(image_size, **cfg_kw)
         self.batch, self.matrix, self.pos_weight = train_inputs(self.cfg)
-        self.fresh = functools.partial(create_train_state, self.cfg, "cpu", 0)
+        self.fresh = functools.partial(drawn_train_state, self.cfg, "cpu", 0)
         state = self.fresh()
         self.jmodels, self.js0 = jax_train_state(state.models, self.jcfg)
         self.jstep = jax.jit(jax_make_train_step(self.jcfg, self.jmodels, self.matrix,

@@ -8,9 +8,10 @@ co-occurrence matrix, the positive weights, the given draws and the
 layouts of a generate call), joins the group through
 `parallel.maybe_init_distributed`, and writes, under DIR/rank<r>/:
 `given/` and `own/`, the checkpoints (`utils/checkpoint.save_state`) of a
-fresh state after one sharded step with the given draws and with the
-state's own; `out.pt`, both steps' metrics and the sharded generate's
-images.
+fresh state (its generator redrawn as `torch_port_common.drawn_train_state`
+redraws it: the test's one-process step starts there) after one sharded
+step with the given draws and with the state's own; `out.pt`, both steps'
+metrics and the sharded generate's images.
 """
 
 import os
@@ -20,7 +21,7 @@ import torch
 
 from aglayout_tpu_torch.config import config_for
 from aglayout_tpu_torch.data.synthetic import batch_to_torch
-from aglayout_tpu_torch.models import build_generator
+from aglayout_tpu_torch.models import build_generator, init_weights
 from aglayout_tpu_torch.parallel import (
     make_sharded_generate,
     make_sharded_train_step,
@@ -41,6 +42,7 @@ def main(root: str) -> None:
     metrics = {}
     for name, draws in (("given", ins["draws"]), ("own", None)):
         state = create_train_state(cfg, "cpu", seed=0)
+        init_weights(state.models.g, torch.Generator().manual_seed(0))
         step = make_sharded_train_step(
             make_train_step(cfg, state.models, ins["matrix"], ins["pos_weight"]), group)
         state, metrics[name] = step(state, batch_to_torch(group.rows(ins["batch"]), "cpu"),
