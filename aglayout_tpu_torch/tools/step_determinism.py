@@ -1,12 +1,12 @@
 """Whether two training runs from one seed repeat themselves, bit for bit.
 
     python -m aglayout_tpu_torch.tools.step_determinism [--mode default|deterministic]
-        [--steps 50] [--check_at 10 50] [--image_size 64]
+        [--steps 50] [--check_at 10 50] [--image_size 64] [--tf32]
         [--batch_size 8] [--corpus_batches 32] [--out FILE] [--device cuda|cpu]
 
 Two runs of `--steps` train steps, each from a fresh state of the same seed,
 at `train_evidence`'s set-up (the reference's config at `--image_size`, f32
-with TF32 off, the scene corpus), in torch's default mode or (`--mode
+with TF32 off, or with `--tf32` on, the scene corpus), in torch's default mode or (`--mode
 deterministic`) under `torch.use_deterministic_algorithms(True,
 warn_only=True)` with `CUBLAS_WORKSPACE_CONFIG=:4096:8` set before the
 first cuBLAS call. After each step of `--check_at` it takes a SHA-256 of
@@ -44,6 +44,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--image_size", type=int, default=64)
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--corpus_batches", type=int, default=32)
+    p.add_argument("--tf32", action="store_true", help="TF32 in cuBLAS and cuDNN for the steps")
     p.add_argument("--out", default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cpu: the plain paths on the host, for tests")
@@ -71,12 +72,12 @@ def one_run(args, overrides) -> dict:
     import torch
 
     from aglayout_tpu_torch.tools.train_evidence import setup
-    from aglayout_tpu_torch.utils.device import no_tf32
+    from aglayout_tpu_torch.utils.device import tf32
 
     device, cfg, corpus, state, step = setup(args, "step_determinism", **overrides)
     cuda = device.type == "cuda"
     times, prints, params, ops = [], {}, {}, set()
-    with no_tf32(), warnings.catch_warnings(record=True) as caught:
+    with tf32(args.tf32), warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         for i in range(args.steps):
             if cuda:
@@ -122,6 +123,7 @@ def measure(args, **overrides) -> dict:
         "steps": args.steps,
         "image_size": args.image_size,
         "batch_size": args.batch_size,
+        "tf32": args.tf32,
         "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
         "ms_per_step": [r["ms_per_step"] for r in runs],
         "fingerprints": {str(k): [r["fingerprints"][k] for r in runs] for k in args.check_at},

@@ -1,4 +1,4 @@
-"""The device of an entry point, f32 without TF32 on the card, and torch's
+"""The device of an entry point, f32 with or without TF32 on the card, and torch's
 deterministic algorithms.
 
 Every entry point of the port runs on the CUDA card unless the caller asks
@@ -26,15 +26,21 @@ def require(device, what: str) -> torch.device:
 
 
 @contextlib.contextmanager
-def no_tf32():
-    """cuBLAS and cuDNN f32 products without TF32 for the body (a metric's
-    network: FID must not move with the card's rounding mode)."""
+def tf32(on: bool):
+    """cuBLAS and cuDNN f32 products with TF32 on or off for the body, both
+    flags restored afterwards."""
     prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = on
     try:
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def no_tf32():
+    """cuBLAS and cuDNN f32 products without TF32 for the body (a metric's
+    network: FID must not move with the card's rounding mode)."""
+    return tf32(False)
 
 
 @contextlib.contextmanager

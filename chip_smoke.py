@@ -173,7 +173,8 @@ raises, and the run then exits non-zero without printing a result:
  16. tools (`aglayout_tpu_torch/tools/`), the 64^2 model at its full width
      (conv_dim 64, 3 ConvLSTM layers, 6 residual blocks, 179 classes),
      B=8: (a) `train_evidence` for 200 steps (f32 with TF32 off, 32 corpus
-     batches, a log every 10 steps): its four files, finite metrics, the
+     batches, a log every 10 steps): its four files and `progress.json`,
+     finite metrics, the
      D's loss and its attribute loss in the last quarter of logs below 0.95
      and 0.8 of the first (0.83 and 0.71 in JAX's committed run, 0.84 and
      0.71 in the port's; the reconstruction L1 0.88 and 1.05: it falls
@@ -189,8 +190,16 @@ raises, and the run then exits non-zero without printing a result:
      and none in the steps; (c) `bench_train_table` for 64:8 bf16 through
      its subprocess: one row, finite steps/s, the card's name; (d)
      `import_reference_artifacts` on a vocab and a `torch.save`d matrix
-     that the phase writes: the .npy equals the matrix. Its files (under
-     build/chip_smoke_tools/) are deleted when the phase ends.
+     that the phase writes: the .npy equals the matrix; (e) `train_evidence`
+     resumed (f32 with TF32 off, `--deterministic`, a log every 10 steps):
+     20 steps in one process against 10 + 10 through `--segment_steps 10`
+     in two, each a child process that saves its state to a file and the
+     second restoring it: `metrics.jsonl` byte-equal, the SHA-256 of every
+     net's `state_dict`, every Adam state and the draws' generator in the
+     saved step-20 states equal, and each run's kernel check (its samples'
+     forward, kernels on against off) K1 and K2 three launches each and
+     within 1e-4. Its files (under build/chip_smoke_tools/) are deleted
+     when the phase ends.
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -210,6 +219,8 @@ import time
 
 import numpy as np
 import torch
+
+from aglayout_tpu_torch.tools.train_evidence import PATH_KERNELS
 
 B, O = 128, 10  # serving batch and object slots (the serving bench's)
 HBM, BF16, INT8, F32 = 3.35e12, 989e12, 1979e12, 67e12  # H100 SXM peaks: bytes/s, operations/s
@@ -245,8 +256,7 @@ SOURCES = {
 }
 K2, K2C, K2T = "spade_few_out_conv", "spade_few_out_conv[compact]", "spade_few_out_conv[transposed]"
 # launches per batch of each path; every kernel not named must not launch
-PATH64 = {"residual_trunk": 1, K2: 1}
-PATH128 = dict(PATH64, spade_few_out_conv8=1, spade_apply8=1, typed_c3_expand=1)
+PATH64, PATH128 = (dict.fromkeys(PATH_KERNELS[size], 1) for size in (64, 128))
 PATH128_INT8 = dict(PATH128, conv_small_int8=O)  # one wide ConvLSTM layer (640 -> 512) x O slots
 # the serving A/B configurations: label, Config fields, launches per batch, and
 # the kernel whose reported launch count comes from this configuration
@@ -2275,7 +2285,8 @@ def phase_tools(smi: str):
         ratios = {k: round(float(quarters[k][1] / quarters[k][0]), 4) for k in D_FALLS}
         log(f"[tools] (a) the D losses' last quarter over their first: {ratios}; from the "
             f"drawn BN state {DRAWN_BN_D_RATIOS}")
-        if files != ["loss_curves.png", "metrics.jsonl", "samples.png", "summary.json"] \
+        if files != ["loss_curves.png", "metrics.jsonl", "progress.json", "samples.png",
+                     "summary.json"] \
                 or len(rows) != 20 or not finite or summary["card"] != smi:
             raise AssertionError("tools (a): files, logged rows or card off")
         for k, bar in D_FALLS.items():
@@ -2379,10 +2390,87 @@ def phase_tools(smi: str):
         if not np.array_equal(got, matrix.float().numpy()) or got.dtype != np.float32 \
                 or not same_vocab:
             raise AssertionError("tools (d): the imported files differ")
+
+        # ---- (e) train_evidence resumed: 10 + 10 steps in two processes against 20 in one
+        t1 = time.perf_counter()
+        evidence_resume(root, smi)
+        log(f"[tools] (e) done in {time.perf_counter() - t1:.1f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"[tools] phase done in {time.perf_counter() - t0:.1f} s")
+
+
+def state_digest(path) -> str:
+    """SHA-256 of a saved train state: every net's `state_dict`, every
+    Adam's state and the draws' generator, in a fixed order."""
+    import hashlib
+
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    h = hashlib.sha256(str(payload["step"]).encode())
+
+    def feed(x):
+        if isinstance(x, dict):
+            for k in sorted(x, key=str):
+                h.update(str(k).encode())
+                feed(x[k])
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                feed(v)
+        elif isinstance(x, torch.Tensor):
+            h.update(x.numpy().tobytes())
+        else:
+            h.update(repr(x).encode())
+
+    feed([payload["nets"], payload["opt"], payload["rng"]])
+    return h.hexdigest()
+
+
+def evidence_resume(root, smi: str) -> None:
+    """Phase 16 (e): `train_evidence` for 20 steps in one child process,
+    and for 10 + 10 through `--segment_steps 10` in two (the first started
+    beside the unsplit run), each saving its state to `--state_dir`."""
+    code = ("import sys; from aglayout_tpu_torch.tools import train_evidence as t; "
+            "t.run(t.parser().parse_args(sys.argv[1:]))")
+
+    def child(name, *extra):
+        argv = ["--steps", "20", "--log_every", "10", "--deterministic", "--out",
+                str(root / name), "--state_dir", str(root / f"{name}_state"), "--device", "cuda"]
+        return subprocess.Popen([sys.executable, "-c", code, *argv, *extra],
+                                cwd=os.path.dirname(os.path.abspath(__file__)),
+                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    def wait(p, what):
+        out, _ = p.communicate(timeout=600)
+        if p.returncode:
+            raise AssertionError(f"tools (e): {what} exited {p.returncode}: {out[-3000:]}")
+        return out
+
+    one, seg = child("one"), child("two", "--segment_steps", "10")
+    wait(seg, "the first segment")
+    if (root / "two" / "summary.json").exists():
+        raise AssertionError("tools (e): the first segment wrote the summary")
+    wait(child("two", "--segment_steps", "10"), "the second segment")
+    wait(one, "the unsplit run")
+    metrics = [(root / name / "metrics.jsonl").read_bytes() for name in ("one", "two")]
+    digests = [state_digest(root / f"{name}_state" / "step_20.pt") for name in ("one", "two")]
+    summaries = [json.loads((root / name / "summary.json").read_text()) for name in ("one", "two")]
+    segments = [[(s["from_step"], s["to_step"]) for s in x["segments"]] for x in summaries]
+    checks = [x["kernel_check"] for x in summaries]
+    lines = metrics[0].count(b"\n")
+    log(f"[tools] (e) train_evidence 64^2 B=8 f32 (TF32 off) deterministic, 20 steps in one "
+        f"process against 10 + 10 in two (segments {segments}): metrics.jsonl equal "
+        f"{metrics[0] == metrics[1]} ({lines} lines), step-20 state "
+        f"SHA-256 {digests[0][:16]}... against {digests[1][:16]}...; the kernel check (the "
+        f"samples' forward, kernels on against off, f32): max |on - off| / max |off| "
+        f"{[c['max_abs_err_over_max'] for c in checks]}, launches {checks[0]['launches']} | {smi}")
+    if metrics[0] != metrics[1] or digests[0] != digests[1] or segments != [[(0, 20)],
+                                                                             [(0, 10), (10, 20)]]:
+        raise AssertionError("tools (e): the resumed run differs from the unsplit one")
+    for c in checks:
+        if c["launches"] != {k: 3 * n for k, n in PATH64.items()} \
+                or not c["max_abs_err_over_max"] <= c["limit"] or c["limit"] != 1e-4:
+            raise AssertionError(f"tools (e): kernel check {c}")
 
 
 def main() -> int:

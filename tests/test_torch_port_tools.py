@@ -317,8 +317,13 @@ def test_train_evidence_files_and_keys(tmp_path):
     rows = [json.loads(line) for line in open(tmp_path / "metrics.jsonl")]
     assert [r["step"] for r in rows] == [2, 4, 6]
     assert all(list(r) == list(jax_row) for r in rows)
-    assert list(summary) == list(jax_summary) + ["card", "deterministic"]
-    assert summary["deterministic"] is False
+    assert list(summary) == list(jax_summary) + ["card", "deterministic", "tf32", "segments",
+                                                 "kernel_check"]
+    assert summary["deterministic"] is False and summary["tf32"] is False
+    assert [(s["from_step"], s["to_step"]) for s in summary["segments"]] == [(0, 6)]
+    check = summary["kernel_check"]  # the host takes the plain paths both times
+    assert check["max_abs_err_over_max"] == 0.0 and check["launches"] == {}
+    assert check["expected"] == [] and check["limit"] == train_evidence.KERNEL_LIMIT
     assert summary["final"] == rows[-1] and summary["steps"] == 6
     assert json.loads((tmp_path / "summary.json").read_text()) == summary
     assert all(np.isfinite(v) for v in rows[-1].values())
@@ -358,6 +363,199 @@ def test_train_evidence_asserts_improvement(tmp_path):
     with pytest.raises(AssertionError, match="reconstruction did not improve"):
         train_evidence.main(_evidence_argv(tmp_path), learning_rate=0.0, **small)
     assert (tmp_path / "summary.json").exists()  # written before the check
+
+
+def _load_state(state_dir, step: int):
+    return torch.load(os.path.join(state_dir, f"step_{step}.pt"), weights_only=True)
+
+
+def _equal(a, b) -> bool:
+    """Nested checkpoint payloads equal, tensors by `torch.equal`."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def _segment_run(tmp_path, name: str, size: int, *extra):
+    """`train_evidence.run` at small widths, 8 steps logged every 2, with
+    its state in `<name>_state`: the summary, or None after a segment."""
+    from aglayout_tpu_torch.bench import TRAIN_SMALL
+    from aglayout_tpu_torch.tools import train_evidence
+
+    small = {k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"}
+    argv = ["--steps", "8", "--log_every", "2", "--batch_size", "3", "--corpus_batches", "3",
+            "--image_size", str(size), "--out", str(tmp_path / name),
+            "--state_dir", str(tmp_path / f"{name}_state"), "--device", "cpu", *extra]
+    return train_evidence.run(train_evidence.parser().parse_args(argv),
+                              object_size=32 if size == 64 else 64, **small)
+
+
+FINAL_FILES = ("loss_curves.png", "samples.png", "summary.json")
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_train_evidence_segments_equal_one_run(tmp_path, size):
+    """S + S steps in two calls equal 2S in one: metrics.jsonl byte-equal,
+    the saved states equal tensor for tensor (nets, Adams, the draws'
+    generator, the step); the plots, samples and summary appear only when
+    the run reaches --steps; the summary lists both segments and its
+    steps/s is the steps over their summed seconds."""
+    one = _segment_run(tmp_path, "one", size)
+    assert _segment_run(tmp_path, "two", size, "--segment_steps", "4") is None
+    assert not any((tmp_path / "two" / f).exists() for f in FINAL_FILES)
+    progress = json.loads((tmp_path / "two" / "progress.json").read_text())
+    assert [(s["from_step"], s["to_step"]) for s in progress["segments"]] == [(0, 4)]
+    two = _segment_run(tmp_path, "two", size, "--segment_steps", "4")
+    assert all((tmp_path / "two" / f).stat().st_size > 0 for f in FINAL_FILES)
+    assert (tmp_path / "one" / "metrics.jsonl").read_bytes() == \
+        (tmp_path / "two" / "metrics.jsonl").read_bytes()
+    assert len((tmp_path / "two" / "metrics.jsonl").read_text().splitlines()) == 4
+    assert _equal(_load_state(tmp_path / "one_state", 8), _load_state(tmp_path / "two_state", 8))
+    assert os.listdir(tmp_path / "two_state") == ["step_8.pt"]  # the newest state only
+    assert [(s["from_step"], s["to_step"]) for s in two["segments"]] == [(0, 4), (4, 8)]
+    assert two["steps_per_sec"] == 8 / sum(s["seconds"] for s in two["segments"])
+    for k in ("final", "rec_l1_first_window", "rec_l1_last_window", "kernel_check"):
+        assert two[k] == one[k], k
+
+
+def test_train_evidence_resumes_a_segment_cut_short(tmp_path):
+    """A segment cut short after its state was saved at step 4 but with a
+    log of step 6 written: the resume drops that line and the run ends as
+    the unsplit one does."""
+    _segment_run(tmp_path, "one", 64)
+    _segment_run(tmp_path, "cut", 64, "--segment_steps", "4")
+    lines = (tmp_path / "one" / "metrics.jsonl").read_text().splitlines()
+    with open(tmp_path / "cut" / "metrics.jsonl", "a") as f:
+        f.write(lines[2].replace('"G/rec_img": ', '"G/rec_img": 9') + "\n")  # step 6, not saved
+    assert _segment_run(tmp_path, "cut", 64, "--segment_steps", "4") is not None
+    assert (tmp_path / "cut" / "metrics.jsonl").read_text().splitlines() == lines
+    assert _equal(_load_state(tmp_path / "one_state", 8), _load_state(tmp_path / "cut_state", 8))
+
+
+def test_train_evidence_finished_run_changes_nothing(tmp_path):
+    """Run again after it reached --steps, the tool returns the summary and
+    writes nothing: every file's bytes and modification time as before."""
+    first = _segment_run(tmp_path, "run", 64, "--segment_steps", "8")
+    files = sorted(p for p in tmp_path.rglob("*") if p.is_file())
+    before = {p: (p.read_bytes(), p.stat().st_mtime_ns) for p in files}
+    assert _segment_run(tmp_path, "run", 64, "--segment_steps", "8") == first
+    assert sorted(p for p in tmp_path.rglob("*") if p.is_file()) == files
+    assert {p: (p.read_bytes(), p.stat().st_mtime_ns) for p in files} == before
+
+
+@pytest.mark.parametrize("fault, match", [
+    ("other_args", "resume with its arguments"),
+    ("no_progress", "do not cover steps 0 to 4"),
+])
+def test_train_evidence_refuses_a_resume_it_cannot_account_for(tmp_path, fault, match):
+    """A resume with another argument than its saved segments' (here --tf32),
+    or one whose progress.json does not cover the steps up to the saved
+    state, raises before it trains; each segment records its arguments."""
+    from aglayout_tpu_torch.bench import TRAIN_SMALL
+
+    _segment_run(tmp_path, "run", 64, "--segment_steps", "4")
+    progress = json.loads((tmp_path / "run" / "progress.json").read_text())
+    assert progress["segments"][0]["run_args"] == {
+        "steps": 8, "image_size": 64, "batch_size": 3, "corpus_batches": 3, "log_every": 2,
+        "deterministic": False, "tf32": False, "device": "cpu", "object_size": 32,
+        **{k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"}}
+    extra = ["--tf32"] if fault == "other_args" else []
+    if fault == "no_progress":
+        os.remove(tmp_path / "run" / "progress.json")
+    with pytest.raises(ValueError, match=match):
+        _segment_run(tmp_path, "run", 64, "--segment_steps", "4", *extra)
+    assert len((tmp_path / "run" / "metrics.jsonl").read_text().splitlines()) == 2
+
+
+def test_train_evidence_reruns_a_segment_cut_before_its_state(tmp_path, monkeypatch):
+    """A segment stopped after its entry in progress.json was written but
+    before its state was saved: the resume drops the entry and runs the
+    segment again whole, and the run ends as the unsplit one does, its
+    segments covering the steps once."""
+    from aglayout_tpu_torch.utils import checkpoint
+
+    _segment_run(tmp_path, "one", 64)
+    _segment_run(tmp_path, "cut", 64, "--segment_steps", "4")
+    save_state = checkpoint.save_state
+
+    def killed(*args, **kw):
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(checkpoint, "save_state", killed)
+    with pytest.raises(KeyboardInterrupt):
+        _segment_run(tmp_path, "cut", 64, "--segment_steps", "4")
+    progress = json.loads((tmp_path / "cut" / "progress.json").read_text())
+    assert [(s["from_step"], s["to_step"]) for s in progress["segments"]] == [(0, 4), (4, 8)]
+    monkeypatch.setattr(checkpoint, "save_state", save_state)
+    summary = _segment_run(tmp_path, "cut", 64, "--segment_steps", "4")
+    assert [(s["from_step"], s["to_step"]) for s in summary["segments"]] == [(0, 4), (4, 8)]
+    assert (tmp_path / "cut" / "metrics.jsonl").read_bytes() == \
+        (tmp_path / "one" / "metrics.jsonl").read_bytes()
+    assert _equal(_load_state(tmp_path / "one_state", 8), _load_state(tmp_path / "cut_state", 8))
+
+
+def test_train_evidence_kernel_check_refuses_a_launch_with_the_routes_off(tmp_path, monkeypatch):
+    """If the forward with every kernel route off launched a kernel (a route
+    switch that kernel_routes_off missed), the check would hold the kernel
+    against itself: it raises instead."""
+    from aglayout_tpu_torch.bench import TRAIN_SMALL
+    from aglayout_tpu_torch.tools import train_evidence
+
+    calls = []
+
+    def counts():  # a launch between every two readings: the off forward's too
+        calls.append(1)
+        return {"residual_trunk": len(calls)}
+
+    monkeypatch.setattr(train_evidence, "launch_counts", counts)
+    small = {k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"}
+    with pytest.raises(AssertionError, match="every route off launched"):
+        train_evidence.run(train_evidence.parser().parse_args(_evidence_argv(tmp_path)), **small)
+
+
+@pytest.mark.parametrize("argv, match", [
+    (["--segment_steps", "4"], "needs a --state_dir"),
+    (["--segment_steps", "3", "--state_dir", "x"], "multiples of --log_every"),
+])
+def test_train_evidence_refuses_segments_it_cannot_resume(tmp_path, argv, match):
+    from aglayout_tpu_torch.tools import train_evidence
+
+    with pytest.raises(ValueError, match=match):
+        train_evidence.run(train_evidence.parser().parse_args(
+            _evidence_argv(tmp_path) + argv))
+
+
+@pytest.mark.parametrize("on", [False, True])
+def test_train_evidence_tf32_sets_and_restores_both_flags(tmp_path, monkeypatch, on):
+    """The steps run with TF32 in cuBLAS and cuDNN as --tf32 says, the
+    summary records it, and both flags come back afterwards."""
+    from aglayout_tpu_torch.bench import TRAIN_SMALL
+    from aglayout_tpu_torch.tools import train_evidence
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", not on)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", not on)
+    setup, seen = train_evidence.setup, []
+
+    def recording_setup(*args, **kw):
+        device, cfg, corpus, state, step = setup(*args, **kw)
+
+        def recorded(*a, **k):
+            seen.append((torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32))
+            return step(*a, **k)
+        return device, cfg, corpus, state, recorded
+
+    monkeypatch.setattr(train_evidence, "setup", recording_setup)
+    small = {k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"}
+    argv = ["--steps", "2", "--log_every", "2", "--batch_size", "3", "--corpus_batches", "2",
+            "--out", str(tmp_path), "--device", "cpu"] + (["--tf32"] if on else [])
+    summary = train_evidence.run(train_evidence.parser().parse_args(argv), **small)
+    assert seen == [(on, on)] * 2 and summary["tf32"] is on
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == (not on,
+                                                                                      not on)
 
 
 @pytest.mark.parametrize("mode", ["default", "deterministic"])
@@ -413,3 +611,18 @@ def test_compare_evidence_reads_the_committed_runs(tmp_path):
         n_jax = len(f.read().splitlines())
     assert out["runs"][1]["lines_equal_to_the_first_run"] == 0
     assert out["runs"][2]["lines_equal_to_the_first_run"] == n_jax
+
+
+def test_compare_evidence_defaults_to_every_runs_end():
+    """Without --at: the fixed steps and each run's last, here JAX's 64^2
+    run's 10,000 and its 128^2 run's 12,000; the 128^2 run's 10-log mean at
+    12,000 is the mean of its last ten logs."""
+    from aglayout_tpu_torch.tools import compare_evidence
+
+    dirs = [os.path.join(REPO, "artifacts", d) for d in ("train_evidence", "train_evidence_128")]
+    out = compare_evidence.main(dirs)
+    assert out["at"] == [200, 1000, 3000, 8000, 10000, 12000]
+    rows = [json.loads(line) for line in open(os.path.join(dirs[1], "metrics.jsonl"))]
+    assert out["runs"][1]["mean_of_10_logs_at"]["12000"] == float(np.mean(
+        [r["G/rec_img"] for r in rows[-10:]]))
+    assert out["runs"][0]["mean_of_10_logs_at"]["12000"] is None

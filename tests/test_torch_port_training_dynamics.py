@@ -9,7 +9,13 @@ tests/test_training_dynamics.py.
   * the committed card run: artifacts/torch_train_evidence/ (8,000 steps
     at the reference's 64^2 config from a fresh state, `python -m
     aglayout_tpu_torch.tools.train_evidence --steps 8000 --deterministic`),
-    its summary held to the JAX test's bar (at least 3,000 steps).
+    its summary held to the JAX test's bar (at least 3,000 steps);
+  * the committed 128^2 card run: artifacts/torch_train_evidence_128/
+    (object_size 64, the attribute D's extra block, the decoder's c5-c7
+    tail; 6,000 steps in two segments of 3,000, `--image_size 128 --steps
+    6000 --deterministic --tf32 --segment_steps 3000`), held to JAX's
+    128^2 test's bar, to JAX's own curve at the same length, and to the
+    kernel check of its samples' forward on the trained state.
 
 The file imports no JAX, so it runs where only PyTorch is installed:
 `python -m pytest --noconftest tests/test_torch_port_training_dynamics.py`.
@@ -27,6 +33,8 @@ from aglayout_tpu_torch.bench import TRAIN_SMALL
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVIDENCE = os.path.join(REPO, "artifacts", "torch_train_evidence")
+EVIDENCE_128 = os.path.join(REPO, "artifacts", "torch_train_evidence_128")
+JAX_EVIDENCE_128 = os.path.join(REPO, "artifacts", "train_evidence_128")
 
 
 def rec_l1_curve(device, steps: int, **cfg_kw):
@@ -98,3 +106,40 @@ def test_committed_training_evidence():
     assert s["rec_l1_reduction"] > 0.3, s
     for art in ("metrics.jsonl", "loss_curves.png", "samples.png"):
         assert os.path.exists(os.path.join(EVIDENCE, art))
+
+
+def test_committed_training_evidence_128():
+    """JAX's test_committed_training_evidence_128 on the port's card run: the
+    128^2 config, at least 3,000 steps, a reduction above 0.3, the three
+    files. Besides: the run's last 10 % of logs within 0.05 of JAX's
+    committed 128^2 run's as if it had ended at the same step; an NVIDIA
+    card named; every log step present; and the samples' eval forward on
+    the trained state with the kernels on within 1e-4 of the plain forward's
+    max, K1-K5 each launched (3 a forward: rec, rand, shift)."""
+    from aglayout_tpu_torch.tools.train_evidence import PATH_KERNELS, windows
+
+    path = os.path.join(EVIDENCE_128, "summary.json")
+    assert os.path.exists(path), (
+        "128^2 training evidence missing: run `python -m aglayout_tpu_torch.tools.train_evidence "
+        "--image_size 128 --deterministic --tf32 ...` on the card")
+    with open(path) as f:
+        s = json.load(f)
+    assert s["image_size"] == 128
+    assert s["steps"] >= 3000
+    assert s["rec_l1_reduction"] > 0.3, s
+    for art in ("metrics.jsonl", "loss_curves.png", "samples.png"):
+        assert os.path.exists(os.path.join(EVIDENCE_128, art))
+    with open(os.path.join(EVIDENCE_128, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows] == list(range(10, s["steps"] + 1, 10))
+    with open(os.path.join(JAX_EVIDENCE_128, "metrics.jsonl")) as f:
+        jax_rows = [json.loads(line) for line in f][:len(rows)]
+    assert jax_rows[-1]["step"] == s["steps"]
+    jax_last = windows([r["G/rec_img"] for r in jax_rows])[1]
+    assert abs(s["rec_l1_last_window"] - jax_last) <= 0.05, (s["rec_l1_last_window"], jax_last)
+    assert s["card"].startswith("NVIDIA") and s["deterministic"] and s["tf32"]
+    assert s["segments"][-1]["to_step"] == s["steps"]
+    k = s["kernel_check"]
+    assert k["limit"] == 1e-4 and k["max_abs_err_over_max"] <= k["limit"], k
+    path = PATH_KERNELS[128]
+    assert {name: k["launches"].get(name) for name in path} == dict.fromkeys(path, 3), k
