@@ -1,11 +1,12 @@
 """FID: Fréchet Inception Distance, dir-vs-dir: the twin of
-`aglayout_tpu/eval/fid.py` (host numpy and scipy, as JAX's; the Inception
-network runs on the device, `eval/inception.py`).
+`aglayout_tpu/eval/fid.py` (host numpy, as JAX's host numpy and scipy; the
+Inception network runs on the device, `eval/inception.py`).
 
 Capability parity with the reference's evaluation/fid.py: activation
 statistics (mean + covariance) per directory of PNGs, Fréchet distance via
-matrix sqrt (calculate_frechet_distance, reference :112-163), <=10k image
-cap and resize-to-model-size protocol (:308-311, 384-385).
+the trace of the matrix sqrt (calculate_frechet_distance, reference
+:112-163), <=10k image cap and resize-to-model-size protocol (:308-311,
+384-385).
 
 The reference downloads a TF1 Inception graph at runtime; this environment
 is zero-egress, so the feature extractor is pluggable:
@@ -34,24 +35,54 @@ def compute_statistics(features: np.ndarray):
     return mu, sigma
 
 
-def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
-    """||mu1 - mu2||^2 + Tr(s1 + s2 - 2 sqrt(s1 s2)) with the reference's
-    eps-regularized sqrtm fallback and imaginary-part check (:112-163)."""
-    from scipy import linalg
+def _significant(lam: np.ndarray, n: int) -> np.ndarray:
+    """The eigenvalues of a symmetric positive semi-definite matrix of an
+    n-d problem, those within the eigensolver's rounding of 0 (n * eps *
+    the largest) set to 0: their square roots would add noise of order
+    sqrt(eps) a dimension."""
+    return np.where(lam > n * np.finfo(lam.dtype).eps * lam.max(initial=0), lam, 0)
 
+
+def trace_sqrt_product(sigma1, sigma2) -> float:
+    """Tr(sqrtm(sigma1 sigma2)) of two symmetric positive semi-definite
+    matrices, in f64, by symmetric eigendecompositions. With A = V S V^T
+    the square root of sigma1 (`eigh`; S^2 the eigenvalues `_significant`
+    keeps, V their vectors), sigma1 sigma2 = A (A sigma2) has the
+    eigenvalues of A sigma2 A = V (S V^T sigma2 V S) V^T, so the trace is
+    the sum of the square roots of the eigenvalues of the r x r S V^T
+    sigma2 V S (r the rank kept; its eigenvalues clipped alike). NaN where
+    an input or that matrix is not finite."""
+    sigma1, sigma2 = np.asarray(sigma1, np.float64), np.asarray(sigma2, np.float64)
+    if not (np.isfinite(sigma1).all() and np.isfinite(sigma2).all()):
+        return float("nan")
+    n = sigma1.shape[0]
+    lam, v = np.linalg.eigh(sigma1)
+    keep = _significant(lam, n) > 0
+    b = v[:, keep] * np.sqrt(lam[keep])
+    m = b.T @ sigma2 @ b
+    if not np.isfinite(m).all():
+        return float("nan")
+    return float(np.sqrt(_significant(np.linalg.eigvalsh((m + m.T) / 2), n)).sum())
+
+
+def frechet_distance(mu1, sigma1, mu2, sigma2, eps: float = 1e-6) -> float:
+    """||mu1 - mu2||^2 + Tr(s1 + s2 - 2 sqrt(s1 s2)), the reference's
+    calculate_frechet_distance (:112-163) with the trace of the square
+    root taken by `trace_sqrt_product` instead of `scipy.linalg.sqrtm`
+    (the same value; 2048-d in about a tenth of the time). As the
+    reference, eps * I is added to both covariances when the first value
+    is not finite (here only where an input is not finite or the product
+    overflows: a singular product needs no offset). The reference's
+    imaginary-part check has nothing left to check: the eigenvalues of a
+    symmetric matrix are real."""
     mu1, mu2 = np.atleast_1d(mu1), np.atleast_1d(mu2)
     sigma1, sigma2 = np.atleast_2d(sigma1), np.atleast_2d(sigma2)
     diff = mu1 - mu2
-    covmean = linalg.sqrtm(sigma1.dot(sigma2))
-    if not np.isfinite(covmean).all():
+    tr_covmean = trace_sqrt_product(sigma1, sigma2)
+    if not np.isfinite(tr_covmean):
         offset = np.eye(sigma1.shape[0]) * eps
-        covmean = linalg.sqrtm((sigma1 + offset).dot(sigma2 + offset))
-    if np.iscomplexobj(covmean):
-        if not np.allclose(np.diagonal(covmean).imag, 0, atol=1e-3):
-            m = np.max(np.abs(covmean.imag))
-            raise ValueError(f"Imaginary component {m}")
-        covmean = covmean.real
-    return float(diff.dot(diff) + np.trace(sigma1) + np.trace(sigma2) - 2 * np.trace(covmean))
+        tr_covmean = trace_sqrt_product(sigma1 + offset, sigma2 + offset)
+    return float(diff.dot(diff) + np.trace(sigma1) + np.trace(sigma2) - 2 * tr_covmean)
 
 
 def load_images(path_or_dir: str, image_size: int, max_images: int = 10000) -> np.ndarray:

@@ -23,7 +23,7 @@ labeled offline stand-ins (pixel-projection FID, random-feature IS,
 random-pyramid perceptual distance) — each report entry carries the
 extractor name so the two regimes can never be confused. The generator,
 the attribute D and the metric networks run on the device (CUDA unless
-`--device cpu`); the statistics are host numpy and scipy, as JAX's.
+`--device cpu`); the statistics are host numpy, as JAX's host numpy and scipy.
 """
 
 from __future__ import annotations

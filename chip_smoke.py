@@ -115,7 +115,8 @@ raises, and the run then exits non-zero without printing a result:
      kernels (counts set to 0 just before, read just after) and equals the
      trained generator in memory bit for bit; (c) `python -m
      aglayout_tpu_torch.train --synthetic --image_size 128` as a
-     subprocess, SIGTERM after 3 log lines: the `[preempt]` line, rc 0,
+     subprocess (started ahead, `ahead_module`, when the phase starts),
+     SIGTERM after 3 log lines: the `[preempt]` line, rc 0,
      and `--resume l` through the entry point ends one step later. The
      checkpoints (about 1 GB each) are deleted when the phase ends. The
      Visual Genome leg is not run: the card's host has no h5py.
@@ -133,10 +134,11 @@ raises, and the run then exits non-zero without printing a result:
      summary keys, finite values, 4 PNGs an image (+ the _modified ones),
      K1-K5 six launches each a batch, ms a batch on the host clock with and
      without the PNGs; (d) `python -m aglayout_tpu_torch.test --synthetic
-     --image_size 128 --max_batches 2` as a subprocess from a checkpoint the
-     phase saves: rc 0 and a JSON summary; (e) `eval/report.evaluate_run`
-     at B=8, 2 batches, with a seeded InceptionV3 (He-normal convs) and a
-     seeded AlexNet with LPIPS heads saved as .pth files: every section
+     --image_size 128 --max_batches 2` as a subprocess (started ahead when
+     (c) starts) from a checkpoint the phase saves: rc 0 and a JSON
+     summary; (e) `eval/report.evaluate_run` at B=8, 2 batches, with a
+     seeded InceptionV3 (He-normal convs) and a seeded AlexNet with LPIPS
+     heads saved as .pth files: every section
      finite and naming the real networks; InceptionV3's pool3 and logits on
      the card (f32, TF32 off) against the CPU on 4 images, 1e-4; images/s of
      InceptionV3 at 299^2 and pairs/s of LPIPS-AlexNet at 128^2. Its files
@@ -145,7 +147,9 @@ raises, and the run then exits non-zero without printing a result:
      `eval/{resnet,classifier,train_att_cls}.py`), every rank a child
      process of the phase (`python3 chip_smoke.py --parallel-child PART`,
      after the build phase has built the kernels, so that no two ranks
-     build at once), so that a failing rank fails the run: (a) an NCCL
+     build at once; (a)'s rank started when phase 14 starts, (b)'s when
+     this phase does, each waiting, CUDA context made, for its group's
+     port), so that a failing rank fails the run: (a) an NCCL
      group of one rank: the sharded train step at 128^2 full width, B=8,
      bf16, against the same step with no group (metrics 2e-2 relative,
      params 1e-6 where Adam's first step is sure of its sign and 2 lr
@@ -194,7 +198,10 @@ raises, and the run then exits non-zero without printing a result:
      resumed (f32 with TF32 off, `--deterministic`, a log every 10 steps):
      20 steps in one process against 10 + 10 through `--segment_steps 10`
      in two, each a child process that saves its state to a file and the
-     second restoring it: `metrics.jsonl` byte-equal, the SHA-256 of every
+     second restoring it (the three start with the phase and run beside
+     (a)-(d), the second segment, its imports, CUDA context and kernel
+     library done, waiting until the first has exited):
+     `metrics.jsonl` byte-equal, the SHA-256 of every
      net's `state_dict`, every Adam state and the draws' generator in the
      saved step-20 states equal, and each run's kernel check (its samples'
      forward, kernels on against off) K1 and K2 three launches each and
@@ -204,17 +211,19 @@ In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
 library's (the heads' in each of their three modes).
-The last three lines are the kernel summary (JSON), the card's name and
-power limit, and the result (JSON).
+The last four lines are each phase's seconds (JSON), the kernel summary
+(JSON), the card's name and power limit, and the result (JSON).
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -455,6 +464,69 @@ def mean_rel(got, want) -> float:
     """mean |got - want| / mean |want|, in f32."""
     got, want = got.float(), want.float()
     return ((got - want).abs().mean() / want.abs().mean()).item()
+
+
+@contextlib.contextmanager
+def fid_seconds():
+    """Each `eval/fid.frechet_distance` call (`evaluate_run` imports it
+    when it runs) timed apart: yields the list that their seconds go into."""
+    from aglayout_tpu_torch.eval import fid
+
+    inner, spent = fid.frechet_distance, []
+
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return inner(*args, **kw)
+        finally:
+            spent.append(round(time.perf_counter() - t, 2))
+
+    fid.frechet_distance = timed
+    try:
+        yield spent
+    finally:
+        fid.frechet_distance = inner
+
+
+# the start of each child process started ahead of its check: the port's
+# imports, the CUDA context and the kernel library, then a wait for a line
+# on its standard input (`go`; at its end the child exits) before its body
+AHEAD = ("import sys, time; t0 = time.time(); import torch; torch.cuda.init(); "
+         "import aglayout_tpu_torch.infer.generate, aglayout_tpu_torch.train.step, "
+         "aglayout_tpu_torch.train.state, aglayout_tpu_torch.utils.checkpoint; "
+         "from aglayout_tpu_torch.kernels import build; build.library(); "
+         "print(f'[child] ready {time.time() - t0:.1f} s', flush=True); "
+         "sys.stdin.readline() or sys.exit(1); t1 = time.time(); ")
+
+
+def ahead(body: str, *argv: str, stderr=subprocess.STDOUT) -> subprocess.Popen:
+    """`python -c AHEAD + body argv` from the repo's root, started now; it
+    runs `body` once `go` lets it."""
+    return subprocess.Popen([sys.executable, "-c", AHEAD + body, *argv],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=stderr,
+                            text=True)
+
+
+def ahead_module(module: str, *argv: str, **kw) -> subprocess.Popen:
+    """`python -m module argv`, started ahead (`ahead`): runpy runs the
+    module as `__main__`, as `-m` does."""
+    return ahead(f"import runpy; runpy.run_module({module!r}, run_name='__main__', "
+                 "alter_sys=True)", *argv, **kw)
+
+
+def go(p: subprocess.Popen) -> None:
+    """Let a child started by `ahead` run its body."""
+    p.stdin.write("\n")
+    p.stdin.flush()
+
+
+def reap(*procs) -> None:
+    """Kill each child that is still running, and wait for it."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
 
 
 def phase_device():
@@ -1506,6 +1578,12 @@ def phase_trainer(smi: str):
     t0 = time.perf_counter()
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_trainer"
     shutil.rmtree(root, ignore_errors=True)
+    # (c)'s entry point, started ahead: it gets ready while (a) and (b) run
+    argv = ["--synthetic", "--image_size", "128", "--batch_size", "8", "--bf16", "true",
+            "--log_step", "1", "--save_step", "10000", "--allow_uniform_matrix", "true",
+            "--use_tensorboard", "false", "--path", str(root / "c"), "--vg_dir",
+            str(root / "c"), "--niter", "100000"]
+    proc = ahead_module("aglayout_tpu_torch.train", *argv)
     try:
         # ---- (a) the loop: 12 steps of the synthetic stream
         cfg = config_for(128, batch_size=8, max_objects=O, bf16=True, log_step=4, save_step=6,
@@ -1597,14 +1675,7 @@ def phase_trainer(smi: str):
         torch.cuda.empty_cache()
 
         # ---- (c) preemption: SIGTERM to the entry point, then `--resume l`
-        argv = ["--synthetic", "--image_size", "128", "--batch_size", "8", "--bf16", "true",
-                "--log_step", "1", "--save_step", "10000", "--allow_uniform_matrix", "true",
-                "--use_tensorboard", "false", "--path", str(root / "c"), "--vg_dir",
-                str(root / "c"), "--niter", "100000"]
-        repo = Path(__file__).resolve().parent
-        proc = subprocess.Popen([sys.executable, "-m", "aglayout_tpu_torch.train"] + argv,
-                                cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True)
+        go(proc)
         out = []
         try:
             deadline, seen = time.time() + 300, 0
@@ -1617,9 +1688,7 @@ def phase_trainer(smi: str):
             rest, _ = proc.communicate(timeout=300)
             out.append(rest)
         finally:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
+            reap(proc)
         text = "".join(out)
         m = re.search(r"\[preempt\] signal 15: saved checkpoint at step (\d+), exiting", text)
         if not m or proc.returncode != 0:
@@ -1636,6 +1705,7 @@ def phase_trainer(smi: str):
             raise AssertionError("trainer (c): the resume did not continue at the saved step")
         del resumed
     finally:
+        reap(proc)
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"[trainer] phase done in {time.perf_counter() - t0:.1f} s")
@@ -1806,6 +1876,9 @@ def phase_infer(smi: str):
 
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_infer"
     shutil.rmtree(root, ignore_errors=True)
+    # (d)'s entry point, started ahead: it gets ready while (c) runs
+    entry = ahead_module("aglayout_tpu_torch.test", "--synthetic", "--image_size", "128",
+                         "--max_batches", "2", "--path", str(root / "d"), stderr=subprocess.PIPE)
     try:
         # ---- (c) run_inference, 128^2, B=8, 3 batches, f32 (the entry's default) and bf16
         ib, nb = 8, 3
@@ -1856,18 +1929,18 @@ def phase_infer(smi: str):
         ckpt = save_state(prepare_dirs(cfg)["models"], 5, state)
         del state
         t1 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "aglayout_tpu_torch.test", "--synthetic", "--image_size",
-             "128", "--max_batches", "2", "--path", str(root / "d")],
-            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
-        text = proc.stdout
+        go(entry)
+        text, err = entry.communicate(timeout=600)
+        text = "".join(line + "\n" for line in text.splitlines()
+                       if not line.startswith("[child] "))
         summary = json.loads(text[text.index("{"):]) if "{" in text else None
         log(f"[infer] (d) python -m aglayout_tpu_torch.test --synthetic --image_size 128 "
-            f"--max_batches 2: rc {proc.returncode} in {time.perf_counter() - t1:.1f} s from a "
+            f"--max_batches 2 (started ahead): rc {entry.returncode} in "
+            f"{time.perf_counter() - t1:.1f} s after its go, from a "
             f"{os.path.getsize(ckpt) / 1e6:.1f} MB checkpoint; "
             f"'{text.splitlines()[0] if text else ''}'; summary {summary}")
-        if proc.returncode != 0 or summary is None or set(summary) != SUMMARY_KEYS:
-            raise AssertionError(f"infer (d): the entry point failed: {proc.stderr[-2000:]}")
+        if entry.returncode != 0 or summary is None or set(summary) != SUMMARY_KEYS:
+            raise AssertionError(f"infer (d): the entry point failed: {err[-2000:]}")
 
         # ---- (e) the report with seeded InceptionV3 and LPIPS-AlexNet weights
         torch.manual_seed(0)
@@ -1878,17 +1951,20 @@ def phase_infer(smi: str):
                     for i, c in enumerate((64, 192, 384, 256, 256))}, weights["lpips"])
         cfg, m = models["f32"]
         t1 = time.perf_counter()
-        report = evaluate_run(cfg, m, lambda: synthetic_loader(cfg), str(root / "report"),
-                              device="cuda", max_batches=2, inception_weights=weights["inception"],
-                              alexnet_weights=weights["alexnet"],
-                              lpips_weights=weights["lpips"])
+        with fid_seconds() as fid_s:
+            report = evaluate_run(cfg, m, lambda: synthetic_loader(cfg), str(root / "report"),
+                                  device="cuda", max_batches=2,
+                                  inception_weights=weights["inception"],
+                                  alexnet_weights=weights["alexnet"],
+                                  lpips_weights=weights["lpips"])
         report_s = time.perf_counter() - t1
         flat = [v for sec in report.values() for v in sec.values()
                 if isinstance(v, (int, float)) and not isinstance(v, bool)]
         names = (report["fid"]["extractor"], report["inception_score"]["classifier"],
                  report["lpips_diversity"]["backbone"])
         log(f"[infer] (e) evaluate_run 128^2 B={ib}, 2 batches, seeded InceptionV3 and "
-            f"LPIPS-AlexNet: {report_s:.1f} s; {json.dumps(report)}")
+            f"LPIPS-AlexNet: {report_s:.1f} s, of which its two FIDs {fid_s} s; "
+            f"{json.dumps(report)}")
         if (not all(np.isfinite(flat)) or any("not comparable" in n for n in names)
                 or names != ("inception-v3 pool3 (pytorch-fid weights)", "inception-v3 logits",
                              "lpips-v0.1-alexnet")):
@@ -1918,6 +1994,7 @@ def phase_infer(smi: str):
         if max(rels) > 1e-4:
             raise AssertionError("infer (e): InceptionV3 on the card disagrees with the CPU")
     finally:
+        reap(entry)
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"[infer] phase done in {time.perf_counter() - t0:.1f} s")
@@ -1934,26 +2011,33 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _children(part: str, world: int, timeout: float = 600):
-    """Run `python3 chip_smoke.py --parallel-child part` as ranks 0..world-1
-    of one process group on the card (LOCAL_RANK 0: they share
-    it) and return each rank's JSON result; any rank that fails, or does
-    not end in `timeout` seconds, fails the phase (every child is killed)."""
+def _spawn(part: str, world: int) -> list:
+    """Start `python3 chip_smoke.py --parallel-child part` as ranks
+    0..world-1 of one process group on the card (LOCAL_RANK 0: they share
+    it); each imports the port and makes its CUDA context, then waits for
+    the group's port on its standard input (`_children` sends it)."""
     from pathlib import Path
 
-    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
-               WORLD_SIZE=str(world), LOCAL_RANK="0")
-    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-child",
-                               part], cwd=Path(__file__).resolve().parent,
-                              env=dict(env, RANK=str(r)), stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True) for r in range(world)]
+    env = dict(os.environ, MASTER_ADDR="localhost", WORLD_SIZE=str(world), LOCAL_RANK="0")
+    return [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--parallel-child",
+                              part], cwd=Path(__file__).resolve().parent,
+                             env=dict(env, RANK=str(r)), stdin=subprocess.PIPE,
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(world)]
+
+
+def _children(part: str, procs: list, timeout: float = 600):
+    """Run the ranks of `part` that `_spawn` started on a free port and
+    return each rank's JSON result; any rank that fails, or does not end
+    in `timeout` seconds, fails the phase (every child is killed)."""
     try:
+        port = str(_free_port())
+        for p in procs:
+            p.stdin.write(port + "\n")
+            p.stdin.flush()
         outs = [p.communicate(timeout=timeout)[0] for p in procs]
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+        reap(*procs)
     results = []
     for r, (p, out) in enumerate(zip(procs, outs)):
         lines = [line for line in out.splitlines() if line.startswith(RESULT)]
@@ -1980,6 +2064,11 @@ def parallel_child(part: str) -> int:
     from aglayout_tpu_torch.train.state import create_train_state
     from aglayout_tpu_torch.train.step import make_train_step
 
+    torch.cuda.init()
+    port = sys.stdin.readline().strip()  # the parent's go, once the port is chosen
+    if not port:
+        return 1
+    os.environ["MASTER_PORT"] = port
     out = {}
     group = maybe_init_distributed("cuda", backend="gloo" if part == "gloo2" else None)
     out["backend"] = torch.distributed.get_backend()
@@ -2040,31 +2129,36 @@ def parallel_child(part: str) -> int:
     return 0
 
 
-def phase_parallel(smi: str):
+def phase_parallel(smi: str, nccl: list):
     """Data parallelism (`parallel/mesh.py`) and the crop classifiers on the
-    card: (a)-(c) in child processes (`parallel_child`), (d) the train entry
-    point under torch's launcher, (e) the classifiers in this process."""
+    card: (a)-(c) in child processes (`parallel_child`; (a)'s rank `nccl`,
+    from `_spawn`), (d) the train entry point under torch's launcher, (e)
+    the classifiers in this process."""
     import shutil
     from pathlib import Path
 
     t0 = time.perf_counter()
     torch.cuda.empty_cache()
-    # ---- (a) an NCCL group of one: the sharded step against the plain one
-    (a,) = _children("nccl1", 1)
-    e, ms = a["errors"], {k: sum(v) / len(v) for k, v in a["ms"].items()}
-    log(f"[parallel] (a) {a['backend']} group of 1, 128^2 full width B=8 bf16: the sharded step "
-        f"against the step with no group: metrics max rel {e['metrics']:.3e} (tol 2e-2), "
-        f"gradients max rel L2 {e['grads']:.3e}, params {e['params_sure']:.3e} where Adam is "
-        f"sure of its sign (tol 1e-6), {e['params_any']:.3e} anywhere (tol 2 lr), BN statistics "
-        f"and SN vectors {e['stats']:.3e} (tol 2e-2), grids {e['grids']} levels; "
-        f"{ms['group']:.2f} ms a step with the group, {ms['plain']:.2f} without (CUDA events, "
-        f"5 steps after a warm-up, twice each in turns: {a['ms']}) | {smi}")
-    if (a["backend"] != "nccl" or e["metrics"] > 2e-2 or e["stats"] > 2e-2
-            or e["params_sure"] > 1e-6 or e["params_any"] > e["params_any_tol"] + 1e-6):
-        raise AssertionError(f"parallel (a): the NCCL step of one rank differs: {e}")
+    gloo = _spawn("gloo2", 2)  # (b) and (c)'s ranks get ready while (a) runs
+    try:
+        # ---- (a) an NCCL group of one: the sharded step against the plain one
+        (a,) = _children("nccl1", nccl)
+        e, ms = a["errors"], {k: sum(v) / len(v) for k, v in a["ms"].items()}
+        log(f"[parallel] (a) {a['backend']} group of 1, 128^2 full width B=8 bf16: the sharded "
+            f"step against the step with no group: metrics max rel {e['metrics']:.3e} (tol "
+            f"2e-2), gradients max rel L2 {e['grads']:.3e}, params {e['params_sure']:.3e} where "
+            f"Adam is sure of its sign (tol 1e-6), {e['params_any']:.3e} anywhere (tol 2 lr), BN "
+            f"statistics and SN vectors {e['stats']:.3e} (tol 2e-2), grids {e['grids']} levels; "
+            f"{ms['group']:.2f} ms a step with the group, {ms['plain']:.2f} without (CUDA events, "
+            f"5 steps after a warm-up, twice each in turns: {a['ms']}) | {smi}")
+        if (a["backend"] != "nccl" or e["metrics"] > 2e-2 or e["stats"] > 2e-2
+                or e["params_sure"] > 1e-6 or e["params_any"] > e["params_any_tol"] + 1e-6):
+            raise AssertionError(f"parallel (a): the NCCL step of one rank differs: {e}")
 
-    # ---- (b), (c) two ranks sharing the card over gloo
-    ranks = _children("gloo2", 2)
+        # ---- (b), (c) two ranks sharing the card over gloo
+        ranks = _children("gloo2", gloo)
+    finally:
+        reap(*gloo)
     e = ranks[0]["errors"]
     log(f"[parallel] (b) {ranks[0]['backend']}, 2 ranks on one card, 128^2 full width, global "
         f"B=8, f32 (TF32 off): against the one-process step on the card: metrics max rel "
@@ -2231,7 +2325,8 @@ def phase_tools(smi: str):
     """The tools' twins (`aglayout_tpu_torch/tools/`) on the card at the
     64^2 model's full width, B=8: (a) `train_evidence`, (b) `quality_curve`'s
     core on the synthetic stream, (c) `bench_train_table` through its
-    subprocess, (d) `import_reference_artifacts`."""
+    subprocess, (d) `import_reference_artifacts`, (e) `train_evidence`
+    resumed (`evidence_resume`)."""
     import shutil
     from pathlib import Path
 
@@ -2253,6 +2348,7 @@ def phase_tools(smi: str):
     t0 = time.perf_counter()
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_tools"
     shutil.rmtree(root, ignore_errors=True)
+    started = evidence_start(root)  # (e), beside (a)-(d)
     try:
         # ---- (a) train_evidence: 200 steps, f32 with TF32 off
         out = root / "evidence"
@@ -2274,7 +2370,8 @@ def phase_tools(smi: str):
         compare = ", ".join(
             f"{k} {quarters[k][0]:.4f} -> {quarters[k][1]:.4f} against "
             f"{JAX_FIRST_200[k][0]:.4f} -> {JAX_FIRST_200[k][1]:.4f}" for k in JAX_FIRST_200)
-        log(f"[tools] (a) train_evidence 64^2 B=8 f32 (TF32 off), 200 steps in {run_s:.1f} s "
+        log(f"[tools] (a) train_evidence 64^2 B=8 f32 (TF32 off), 200 steps (beside (e)'s "
+            f"children) in {run_s:.1f} s "
             f"({summary['steps_per_sec']:.3f} steps/s, {1e3 / summary['steps_per_sec']:.1f} "
             f"ms/step with the logging and the sample grid's forward): rec L1 first window "
             f"{summary['rec_l1_first_window']:.4f}, last {summary['rec_l1_last_window']:.4f} "
@@ -2325,10 +2422,11 @@ def phase_tools(smi: str):
         launch_counts(reset=True)
         t1 = time.perf_counter()
         try:
-            _, curve = quality_curve.run_curve(
-                cfg, state, step_fn, train_iter(), lambda: synthetic_loader(cfg), steps=20,
-                eval_every=10, eval_batches=1, work_dir=str(root / "curve"), device="cuda",
-                on_row=on_row)
+            with fid_seconds() as fid_s:
+                _, curve = quality_curve.run_curve(
+                    cfg, state, step_fn, train_iter(), lambda: synthetic_loader(cfg), steps=20,
+                    eval_every=10, eval_batches=1, work_dir=str(root / "curve"), device="cuda",
+                    on_row=on_row)
         finally:
             hook.remove()
         run_s = time.perf_counter() - t1
@@ -2336,7 +2434,7 @@ def phase_tools(smi: str):
                      if k != "fid_extractor" and v is not None)
         log(f"[tools] (b) quality_curve 64^2 B=8, 20 steps, evaluation points "
             f"{[r['step'] for r in curve]} in {run_s:.1f} s (eval s "
-            f"{[r['eval_wall_s'] for r in curve]}); the train iterator "
+            f"{[r['eval_wall_s'] for r in curve]}, of which FIDs {fid_s} s); the train iterator "
             f"drawn {drawn[0]} times; per point (step, eval forwards, launches since the last): "
             f"{points}; fid_rand {[round(r['fid_rand'], 3) for r in curve]}, lpips_diversity "
             f"{[round(r['lpips_diversity'], 6) for r in curve]}")
@@ -2393,9 +2491,10 @@ def phase_tools(smi: str):
 
         # ---- (e) train_evidence resumed: 10 + 10 steps in two processes against 20 in one
         t1 = time.perf_counter()
-        evidence_resume(root, smi)
+        evidence_resume(started, root, smi)
         log(f"[tools] (e) done in {time.perf_counter() - t1:.1f} s")
     finally:
+        reap(*started[0].values())
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"[tools] phase done in {time.perf_counter() - t0:.1f} s")
@@ -2426,32 +2525,74 @@ def state_digest(path) -> str:
     return h.hexdigest()
 
 
-def evidence_resume(root, smi: str) -> None:
-    """Phase 16 (e): `train_evidence` for 20 steps in one child process,
-    and for 10 + 10 through `--segment_steps 10` in two (the first started
-    beside the unsplit run), each saving its state to `--state_dir`."""
-    code = ("import sys; from aglayout_tpu_torch.tools import train_evidence as t; "
-            "t.run(t.parser().parse_args(sys.argv[1:]))")
+def evidence_children(root) -> dict:
+    """Phase 16 (e)'s three `train_evidence` child processes, started
+    ahead (`ahead`): 20 steps in one ("one"), 10 + 10 through
+    `--segment_steps 10` in two ("first", "second", both writing to
+    "two"), each saving its state to `--state_dir`."""
+    body = ("from aglayout_tpu_torch.tools import train_evidence as t; "
+            "t.run(t.parser().parse_args(sys.argv[1:])); "
+            "print(f'[child] ran {time.time() - t1:.1f} s', flush=True)")
 
     def child(name, *extra):
-        argv = ["--steps", "20", "--log_every", "10", "--deterministic", "--out",
-                str(root / name), "--state_dir", str(root / f"{name}_state"), "--device", "cuda"]
-        return subprocess.Popen([sys.executable, "-c", code, *argv, *extra],
-                                cwd=os.path.dirname(os.path.abspath(__file__)),
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        return ahead(body, "--steps", "20", "--log_every", "10", "--deterministic", "--out",
+                     str(root / name), "--state_dir", str(root / f"{name}_state"), "--device",
+                     "cuda", *extra)
 
-    def wait(p, what):
-        out, _ = p.communicate(timeout=600)
-        if p.returncode:
-            raise AssertionError(f"tools (e): {what} exited {p.returncode}: {out[-3000:]}")
-        return out
+    return {"one": child("one"), "first": child("two", "--segment_steps", "10"),
+            "second": child("two", "--segment_steps", "10")}
 
-    one, seg = child("one"), child("two", "--segment_steps", "10")
-    wait(seg, "the first segment")
-    if (root / "two" / "summary.json").exists():
-        raise AssertionError("tools (e): the first segment wrote the summary")
-    wait(child("two", "--segment_steps", "10"), "the second segment")
-    wait(one, "the unsplit run")
+
+def evidence_start(root) -> tuple:
+    """Phase 16 (e), started with the phase: `evidence_children`' unsplit
+    run and first segment at once, the second segment once the first has
+    exited, through a thread of this process that waits for them. Returns
+    (the children, the thread, its record: each child's end and marks, and
+    the error that stopped it)."""
+    kids, record = evidence_children(root), {"walls": {}, "error": None}
+    t_start = time.perf_counter()
+
+    def wait(name):
+        out, _ = kids[name].communicate(timeout=900)
+        if kids[name].returncode:
+            raise AssertionError(f"tools (e): {name} exited {kids[name].returncode}: "
+                                 f"{out[-3000:]}")
+        record["walls"][name] = (round(time.perf_counter() - t_start, 1),
+                                 [line[8:] for line in out.splitlines()
+                                  if line.startswith("[child] ")])
+
+    def run():
+        try:
+            go(kids["one"])
+            go(kids["first"])
+            wait("first")
+            if (root / "two" / "summary.json").exists():
+                raise AssertionError("tools (e): the first segment wrote the summary")
+            go(kids["second"])
+            wait("second")
+            wait("one")
+        except Exception as e:  # raised by evidence_resume
+            record["error"] = e
+
+    thread = threading.Thread(target=run, daemon=True)
+    thread.start()
+    return kids, thread, record
+
+
+def evidence_resume(started: tuple, root, smi: str) -> None:
+    """Phase 16 (e)'s checks, once `evidence_start`'s children have ended."""
+    _, thread, record = started
+    thread.join(timeout=900)
+    if thread.is_alive():
+        raise AssertionError("tools (e): the children did not end in 900 s")
+    if record["error"] is not None:
+        raise record["error"]
+    steps_s = [[round(s["seconds"], 1) for s in json.loads(
+        (root / name / "progress.json").read_text())["segments"]] for name in ("one", "two")]
+    log(f"[tools] (e) each child's end (s after phase 16 started them) and its own marks "
+        f"(ready: imports, CUDA and the kernel library, before its go; ran: after it): "
+        f"{record['walls']}; the steps' seconds (progress.json): unsplit {steps_s[0]}, "
+        f"segments {steps_s[1]}")
     metrics = [(root / name / "metrics.jsonl").read_bytes() for name in ("one", "two")]
     digests = [state_digest(root / f"{name}_state" / "step_20.pt") for name in ("one", "two")]
     summaries = [json.loads((root / name / "summary.json").read_text()) for name in ("one", "two")]
@@ -2474,41 +2615,57 @@ def evidence_resume(root, smi: str) -> None:
 
 
 def main() -> int:
-    smi = phase_device()
-    phase_build()
-    model64, _, _ = phase_generate(64, PATH64, smi, iters=5)
-    model128, launches, img128 = phase_generate(128, PATH128, smi)
+    seconds = {}
+
+    def timed(name, fn, *args, **kw):  # each phase's seconds, for the phase_seconds line
+        t = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    t_main = time.perf_counter()
+    smi = timed("device", phase_device)
+    timed("build", phase_build)
+    model64, _, _ = timed("generate 64", phase_generate, 64, PATH64, smi, iters=5)
+    model128, launches, img128 = timed("generate 128", phase_generate, 128, PATH128, smi)
     default = (model128, img128)
-    model_int8, launches_int8, _ = phase_generate(128, PATH128_INT8, smi, iters=6, label="int8",
-                                                  against=default, int8_serving=True)
+    model_int8, launches_int8, _ = timed("generate 128 int8", phase_generate, 128, PATH128_INT8,
+                                         smi, iters=6, label="int8", against=default,
+                                         int8_serving=True)
     launches["conv_small_int8"] = launches_int8["conv_small_int8"]
     for label, cfg_kw, expect, name in VARIANTS:
-        _, counts, _ = phase_generate(128, expect, smi, iters=6, label=label, against=default,
-                                      **cfg_kw)
+        _, counts, _ = timed(f"generate 128 {label}", phase_generate, 128, expect, smi, iters=6,
+                             label=label, against=default, **cfg_kw)
         if name:
             launches[name] = counts[name]
     del img128, default
-    phase_bench()
-    rows = phase_kernels(model64, model128, model_int8)
-    phase_reference(64, PATH64)
-    phase_reference(128, PATH128)
-    phase_reference(128, PATH128_INT8, int8=True)
-    for _, cfg_kw, expect, name in VARIANTS:
+    timed("bench", phase_bench)
+    rows = timed("kernels", phase_kernels, model64, model128, model_int8)
+    timed("reference 64", phase_reference, 64, PATH64)
+    timed("reference 128", phase_reference, 128, PATH128)
+    timed("reference 128 int8", phase_reference, 128, PATH128_INT8, int8=True)
+    for label, cfg_kw, expect, name in VARIANTS:
         if name:  # once with v5, once with v6, once with head8 off
-            phase_reference(128, expect, **cfg_kw)
-    phase_reference_cell()
-    phase_fallthrough(64)
-    phase_fallthrough(128)
-    phase_fallthrough_int8()
-    phase_wide_typed()
-    phase_discriminators(smi)
-    phase_train(smi)
-    phase_trainer(smi)
-    phase_infer(smi)
-    phase_parallel(smi)
-    phase_tools(smi)
+            timed(f"reference 128 {label}", phase_reference, 128, expect, **cfg_kw)
+    timed("reference cell", phase_reference_cell)
+    timed("fallthrough 64", phase_fallthrough, 64)
+    timed("fallthrough 128", phase_fallthrough, 128)
+    timed("fallthrough int8", phase_fallthrough_int8)
+    timed("wide typed", phase_wide_typed)
+    timed("discriminators", phase_discriminators, smi)
+    timed("train", phase_train, smi)
+    timed("trainer", phase_trainer, smi)
+    nccl = _spawn("nccl1", 1)  # phase 15 (a)'s rank gets ready while phase 14 runs
+    try:
+        timed("infer", phase_infer, smi)
+        timed("parallel", phase_parallel, smi, nccl)
+    finally:
+        reap(*nccl)
+    timed("tools", phase_tools, smi)
     for name, row in rows.items():
         row["launches"] = launches[name]
+    seconds["total"] = round(time.perf_counter() - t_main, 1)
+    print(json.dumps({"phase_seconds": seconds}))
     print(json.dumps({"kernels": list(rows.values())}))
     print(f"{smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

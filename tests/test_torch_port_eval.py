@@ -56,11 +56,16 @@ def test_frechet_and_statistics_equal_jax():
     ja, jb = jax_fid.compute_statistics(a), jax_fid.compute_statistics(b)
     for x, y in zip(sa + sb, ja + jb):
         assert np.array_equal(x, y)
-    assert fid.frechet_distance(*sa, *sb) == jax_fid.frechet_distance(*ja, *jb)
-    # rank-deficient covariances take the eps-regularised fallback alike
-    c = rng.randn(3, 6)
+    # the port takes the trace of the square root by eigendecompositions,
+    # JAX by sqrtm: the same value to f64 rounding where the covariances are
+    # full-rank, and to sqrtm's own accuracy on a singular product, of the
+    # order of sqrt(f64 eps) (tests/test_torch_port_fid.py holds both at 2048-d)
+    got, want = fid.frechet_distance(*sa, *sb), jax_fid.frechet_distance(*ja, *jb)
+    assert abs(got - want) <= 1e-12 * want, (got, want)
+    c = rng.randn(3, 6)  # a rank-2 covariance
     sc = fid.compute_statistics(c)
-    assert fid.frechet_distance(*sa, *sc) == jax_fid.frechet_distance(*sa, *sc)
+    got, want = fid.frechet_distance(*sa, *sc), jax_fid.frechet_distance(*sa, *sc)
+    assert abs(got - want) <= 1e-7 * want, (got, want)
 
 
 def test_inception_score_from_probs_equals_jax():
@@ -137,23 +142,20 @@ def png_dirs(tmp_path_factory):
 
 
 def test_fid_cli_equals_jax(monkeypatch, capsys, png_dirs):
-    # both packages call scipy's sqrtm of the same 2048^2 product (13 s on
-    # an 8-core CPU): the second call takes the first's result
-    from scipy import linalg
+    # JAX's sqrtm of the 2048^2 product of two rank-7 covariances (13 s on an
+    # 8-core CPU) against the port's eigendecompositions: within the report's
+    # 5e-4 (measured 2.2e-7), and the port within 1e-7 of the trace taken from
+    # the features' 8 x 8 cross product (measured 4.6e-9)
+    from tests.test_torch_port_fid import REFEREE_TOL, TOL, referee_frechet_distance
 
-    sqrtm, seen = linalg.sqrtm, {}
-
-    def cached(a):
-        key = a.tobytes()
-        if key not in seen:
-            seen[key] = sqrtm(a)
-        return seen[key]
-
-    monkeypatch.setattr(linalg, "sqrtm", cached)
     got = fid.main([*png_dirs, "--image_size", "24", "--device", "cpu"])
     want = run_jax_cli(monkeypatch, capsys, jax_fid.main, [*png_dirs, "--image_size", "24"])
-    assert got == want and np.isfinite(got["fid"]) and got["fid"] >= 0
-    assert len(seen) == 1  # the same product in both
+    assert got.keys() == want.keys() and got["extractor"] == want["extractor"]
+    assert np.isfinite(got["fid"]) and got["fid"] >= 0
+    assert abs(got["fid"] - want["fid"]) <= TOL * want["fid"], (got, want)
+    ext = fid.PixelProjectionExtractor()
+    referee = referee_frechet_distance(*(ext(fid.load_images(d, 24)) for d in png_dirs))
+    assert abs(got["fid"] - referee) <= REFEREE_TOL * referee, (got, referee)
 
 
 def test_inception_score_cli_equals_jax(monkeypatch, capsys, png_dirs, tmp_path):

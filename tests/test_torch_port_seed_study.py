@@ -13,8 +13,16 @@ both over seeds 0-7 at 64^2 and 128^2, with torch at 2 threads:
     first_window.main(["--image_size", size, "--batch_size", "3", "--device", "cpu"],
                       **TRAIN_SMALL without batch_size, object_size 32 or 64)
 
-The tests run one seed of each and hold its first log (step 10) to the
-committed file's within 1e-2, relatively. Only the first: from the second
+At full width (64^2, B=8) the first windows are committed, not run here:
+the port's eight card seeds (card_64.json, `tools/first_window`), its
+seeds 0-3 on the host's CPU (host_port_full_64.json, `first_window --device
+cpu --deterministic`) and JAX's seeds 0 and 1 on the host's CPU
+(host_jax_full_64.json, this module's `main`, about 40 minutes a seed);
+`test_full_width_first_windows_two_sided` checks the files and applies
+PERF.md's two-sided rule to them.
+
+The small-width tests run one seed of each and hold its first log (step
+10) to the committed file's within 1e-2, relatively. Only the first: from the second
 log on, a run carries the host's f32 rounding amplified by the steps, and
 the port's second log moves by several per cent with torch's thread count
 alone, so the later logs repeat only on the same host with the same
@@ -108,3 +116,119 @@ def test_jax_first_window_matches_the_committed_study():
     want = _study()["jax_64"]["0"]["rec_l1"][0]
     assert len(logs[0]) == 1 and np.isfinite(logs[0][0])
     assert abs(logs[0][0] / want - 1) <= TOL, (logs, want)
+
+
+FULL_JAX = os.path.join(os.path.dirname(STUDY), "host_jax_full_64.json")
+FULL_PORT_HOST = os.path.join(os.path.dirname(STUDY), "host_port_full_64.json")
+FULL_PORT_CARD = os.path.join(os.path.dirname(STUDY), "card_64.json")
+JAX_TPU_64 = os.path.join(REPO, "artifacts", "train_evidence", "summary.json")  # JAX's 64^2 run
+
+
+def _full(path, seeds):
+    """A full-width 64^2 B=8 first-window file: its layout checked (each
+    seed's three logs, its window their mean, the summary the windows'),
+    returned."""
+    with open(path) as f:
+        out = json.load(f)
+    assert (out["image_size"], out["batch_size"], out["steps"]) == (64, 8, 30), path
+    assert sorted(out["seeds"], key=int) == [str(s) for s in seeds], path
+    windows = []
+    for run in out["seeds"].values():
+        assert len(run["rec_l1"]) == 3 and np.isfinite(run["rec_l1"]).all(), path
+        assert abs(run["first_window"] - np.mean(run["rec_l1"])) <= 1e-12, path
+        windows.append(run["first_window"])
+    assert (out["first_window"]["min"], out["first_window"]["max"]) == (min(windows), max(windows))
+    assert abs(out["first_window"]["mean"] - np.mean(windows)) <= 1e-12, path
+    return out
+
+
+def full_width_sets():
+    """(JAX's full-width set: its host seeds 0 and 1 and its TPU seed 0;
+    the port's: its eight card seeds), each {name: first window}, from the
+    committed files, their layouts checked (the port's four host seeds'
+    too, which the platform effect of PERF.md reads)."""
+    jax_host = _full(FULL_JAX, [0, 1])
+    port_card, port_host = _full(FULL_PORT_CARD, range(8)), _full(FULL_PORT_HOST, range(4))
+    assert jax_host["host"]["cpu"] and jax_host["command"].startswith("JAX_PLATFORMS=cpu")
+    assert set(jax_host["seconds"]) == {"0", "1"}
+    assert port_card["deterministic"] and not port_card["tf32"]
+    assert port_card["card"].startswith("NVIDIA H100")
+    assert port_host["deterministic"] and port_host["card"].startswith("cpu")
+    jax_set = {f"cpu{k}": v["first_window"] for k, v in jax_host["seeds"].items()}
+    with open(JAX_TPU_64) as f:
+        jax_set["tpu0"] = json.load(f)["rec_l1_first_window"]
+    return jax_set, {k: v["first_window"] for k, v in port_card["seeds"].items()}
+
+
+def two_sided(a: dict, b: dict) -> tuple:
+    """(a's mean within b's range, b's mean within a's range)."""
+    def inside(values, of):
+        return min(of.values()) <= float(np.mean(list(values.values()))) <= max(of.values())
+    return inside(a, b), inside(b, a)
+
+
+def test_full_width_first_windows_two_sided():
+    """The full-width 64^2 rule of PERF.md §6: the mean of JAX's set
+    (its host seeds 0, 1 and its TPU seed 0) within the port's eight card
+    seeds' range, and the port's mean within JAX's range."""
+    jax_set, port_card = full_width_sets()
+    assert two_sided(jax_set, port_card) == (True, True), (jax_set, port_card)
+
+
+def _host() -> dict:
+    """The CPU's model name, its logical cores and JAX's version."""
+    import platform
+
+    import jax
+
+    model = platform.processor()
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((line.split(":", 1)[1].strip() for line in f
+                          if line.startswith("model name")), model)
+    except OSError:
+        pass
+    return {"cpu": model, "cores": os.cpu_count(), "jax": jax.__version__}
+
+
+def main(argv=None) -> dict:
+    """JAX's full-width first windows on the host, one seed at a time:
+
+        JAX_PLATFORMS=cpu python -m tests.test_torch_port_seed_study --seeds 0 1 [--out FILE]
+
+    JAX's `config_for(64, batch_size=8)` (tools/train_evidence.py's) through
+    `jax_first_window`; the file is rewritten after each seed, in
+    card_64.json's layout plus the host, each seed's seconds (set-up and
+    compile included) and this command."""
+    import argparse
+    import sys
+    import time
+
+    from aglayout_tpu.config import config_for
+
+    p = argparse.ArgumentParser(description=main.__doc__.split("\n\n")[0])
+    p.add_argument("--seeds", type=int, nargs="+", default=[0, 1])
+    p.add_argument("--out", default=FULL_JAX)
+    args = p.parse_args(argv)
+    jcfg = config_for(64, batch_size=8)
+    result = {"image_size": jcfg.image_size, "batch_size": jcfg.batch_size, "steps": 30,
+              "seeds": {}, "seconds": {}, "host": _host(),
+              "command": "JAX_PLATFORMS=cpu python -m tests.test_torch_port_seed_study "
+                         + " ".join(sys.argv[1:] if argv is None else argv)}
+    for seed in args.seeds:
+        t0 = time.perf_counter()
+        values = jax_first_window(jcfg, [seed])[seed]
+        result["seconds"][str(seed)] = time.perf_counter() - t0
+        result["seeds"][str(seed)] = {"rec_l1": values, "first_window": float(np.mean(values))}
+        windows = [r["first_window"] for r in result["seeds"].values()]
+        result["first_window"] = {"min": min(windows), "max": max(windows),
+                                  "mean": float(np.mean(windows)), "std": float(np.std(windows))}
+        with open(args.out, "w") as f:
+            json.dump(result, f, indent=2)
+        print(f"seed {seed}: first window {windows[-1]:.4f} "
+              f"({result['seconds'][str(seed)]:.1f} s)", flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()
