@@ -228,6 +228,7 @@ def run_train(args, **overrides) -> dict:
 
 def _time_train(args, cfg) -> dict:
     from aglayout_tpu_torch.data.synthetic import batch_to_torch
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
     from aglayout_tpu_torch.train.state import create_train_state
     from aglayout_tpu_torch.train.step import make_train_step
 
@@ -269,6 +270,23 @@ def _time_train(args, cfg) -> dict:
     parts = {}
     for name, prev in zip(PHASES, ("start",) + PHASES):
         parts[name] = round(sum(elapsed_ms(t[prev], t[name]) for t in marks) / iters, 3)
+    peak = round(torch.cuda.max_memory_allocated() / 2**30, 3) if cuda else None
+    graphed = None
+    if cuda:
+        t0 = time.perf_counter()
+        replay = GraphedTrainStep(step, state, batch)
+        capture_s = time.perf_counter() - t0
+        start, total = stamp(), torch.zeros((), device=dev)
+        for _ in range(iters):
+            state, metrics = replay(state, batch)
+            total += metrics["G/loss"]
+        end = stamp()
+        torch.cuda.synchronize()
+        if not np.isfinite(float(total)):
+            raise FloatingPointError(f"bench: the graphed G losses' sum is {float(total)}")
+        gms = elapsed_ms(start, end) / iters
+        graphed = {"ms_per_step": round(gms, 3), "steps_per_sec": round(1e3 / gms, 3),
+                   "capture_s": round(capture_s, 3)}
     return {
         "metric": f"{cfg.image_size}x{cfg.image_size} GAN train steps/sec/chip (batch {b})",
         "value": round(1e3 / ms, 3),
@@ -278,7 +296,8 @@ def _time_train(args, cfg) -> dict:
         "warm_step_s": round(warm_s, 3),
         "phase_ms": parts,
         "d_phase_share": round(parts["d_phase"] / ms, 3),
-        "peak_memory_gib": round(torch.cuda.max_memory_allocated() / 2**30, 3) if cuda else None,
+        "peak_memory_gib": peak,
+        "graphed": graphed,
         "card": card(dev),
         "config": {"batch_size": b, "max_objects": o, "bf16": cfg.bf16, "remat": cfg.remat,
                    "double_g_forward": cfg.double_g_forward, "iters": iters,

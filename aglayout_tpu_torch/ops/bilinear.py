@@ -40,8 +40,9 @@ def _unit_linspace(steps: int, device, dtype=torch.float32) -> torch.Tensor:
     if steps == 1:
         return torch.zeros(1, dtype=dtype, device=device)
     t = torch.arange(steps, dtype=dtype, device=device)
-    t = t * torch.tensor(1.0 / (steps - 1), dtype=dtype, device=device)
-    t[-1] = 1.0
+    # a Python scalar and a fill, not host-to-device copies: the same bits
+    t = t * (1.0 / (steps - 1))
+    t[-1:].fill_(1.0)
     return t
 
 

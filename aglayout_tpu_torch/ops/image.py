@@ -3,23 +3,31 @@
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=None)
+def _mean_std(dtype: torch.dtype, device: torch.device):
+    """The (mean, std) tensors in `dtype` on `device`, made once: a train
+    step builds its grids without a host-to-device copy."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=dtype, device=device),
+            torch.tensor(IMAGENET_STD, dtype=dtype, device=device))
+
+
 def imagenet_preprocess(images):
     """[0, 1] float (..., 3) -> ImageNet-normalized, in the images' dtype."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=images.dtype, device=images.device)
-    std = torch.tensor(IMAGENET_STD, dtype=images.dtype, device=images.device)
+    mean, std = _mean_std(images.dtype, images.device)
     return (images - mean) / std
 
 
 def imagenet_deprocess(images, rescale: bool = True):
     """Inverse-normalize (B, H, W, 3); optionally min-max rescale per image to [0, 1]."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=images.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=images.device)
+    mean, std = _mean_std(torch.float32, images.device)
     x = images.float() * std + mean
     if rescale:
         axes = tuple(range(1, x.ndim))

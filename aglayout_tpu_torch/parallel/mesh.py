@@ -218,4 +218,5 @@ def make_sharded_train_step(train_step, group: Group):
         with sharded(group):
             return train_step(state, batch, draws=draws, mark=mark)
 
+    step.group = group  # `train/graph.py` refuses a sharded step
     return step

@@ -3,7 +3,8 @@ and kernel by kernel, on one CUDA card:
 
     python3 -m aglayout_tpu_torch.profile_generate [--image_size 64|128] [--off] [--batches 5]
         [--int8] [--typed_c3 v4|v5|v6]
-    python3 -m aglayout_tpu_torch.profile_generate --train_step [B] [--f32] [--batches 5] [--group]
+    python3 -m aglayout_tpu_torch.profile_generate --train_step [B] [--f32 [--tf32]] [--deterministic]
+        [--batches 5] [--graph | --group]
 
 The full-width generator (128^2 by default; B = 128, O = 10, bf16, seeded
 weights, the serving bench's layouts), the hand-written kernels on (or,
@@ -26,12 +27,19 @@ over `--batches` batches after warm-up:
 
 With `--train_step [B]` (B=8 when not given) the second pass profiles
 `--batches` steps of `train/step.py` on the bench's synthetic batch (bf16,
-or with `--f32` f32 with TF32 off; the models in training mode, no kernel
-of the port) after two warm-up steps: launches, device busy time and its
-share of each step. With `--group` the same step runs also sharded in an
-NCCL group of one rank (`parallel.make_sharded_train_step`; the process
-joins it itself), each profiled in turns with the plain one: what the
-collectives cost a step before a second card shares the work.
+or with `--f32` f32 with TF32 off, with `--tf32` on, as `train_evidence
+--tf32` runs; with `--deterministic` under torch's deterministic algorithms,
+`utils/device.deterministic`; the models in training mode, no kernel of
+the port) after two warm-up steps: launches, device busy time and its
+share of each step. Then one step runs under
+`torch.cuda.set_sync_debug_mode("warn")`, and the lines of the port that
+made the host wait for the card in it are listed by file and line. With
+`--graph` the step is then captured as one CUDA graph (`train/graph.py`)
+and profiled graphed, eager, graphed, on the same state. With `--group`
+the same step runs also sharded in an NCCL group of one rank
+(`parallel.make_sharded_train_step`; the process joins it itself), each
+profiled in turns with the plain one: what the collectives cost a step
+before a second card shares the work.
 
 Each pass also counts the CUDA runtime calls that make the host wait for
 the card (`cudaStreamSynchronize`, `cudaDeviceSynchronize`,
@@ -170,7 +178,18 @@ def report(tag: str, what: str, batches: int, profile) -> None:
 
 
 def train_step_profile(args, smi: str) -> None:
-    """The second pass over `args.batches` train steps."""
+    """The second pass over `args.batches` train steps; with
+    `args.deterministic` under torch's deterministic algorithms, entered
+    before the first product (cuBLAS reads its workspace config then)."""
+    import contextlib
+
+    from aglayout_tpu_torch.utils.device import deterministic
+
+    with deterministic() if args.deterministic else contextlib.nullcontext():
+        _train_step_profile(args, smi)
+
+
+def _train_step_profile(args, smi: str) -> None:
     from aglayout_tpu_torch.bench import train_inputs
     from aglayout_tpu_torch.config import config_for
     from aglayout_tpu_torch.data.synthetic import batch_to_torch
@@ -181,7 +200,7 @@ def train_step_profile(args, smi: str) -> None:
     b = args.train_step
     cfg = config_for(args.image_size, batch_size=b, bf16=not args.f32)
     if args.f32:
-        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = args.tf32
     batch, matrix, pos_weight = train_inputs(cfg, b)
     batch = batch_to_torch(batch, "cuda")
     runs = {}
@@ -193,12 +212,46 @@ def train_step_profile(args, smi: str) -> None:
         for _ in range(2):
             step(state, batch)
         runs[name] = (step, state)
-    tag = (f"[profile] train step {args.image_size}^2 B={b} "
-           f"{'f32 (TF32 off)' if args.f32 else 'bf16'}, {smi}")
+    precision = f"f32 (TF32 {'on' if args.tf32 else 'off'})" if args.f32 else "bf16"
+    tag = (f"[profile] train step {args.image_size}^2 B={b} {precision}"
+           f"{', deterministic' if args.deterministic else ''}, {smi}")
     for name in ("plain", "group", "group", "plain") if args.group else ("plain",):
         step, state = runs[name]
         report(f"{tag}, {name}" if args.group else tag, "step", args.batches,
                profiled(lambda: step(state, batch), args.batches))
+    step, state = runs["plain"]
+    sites = sync_sites(lambda: step(state, batch))
+    print(f"{tag}: host waits in one step by line ({sum(sites.values())} in all):", flush=True)
+    for site, n in sorted(sites.items(), key=lambda kv: -kv[1]):
+        print(f"[profile sync] {n:4d}  {site}", flush=True)
+    if args.graph:
+        from aglayout_tpu_torch.train.graph import GraphedTrainStep
+
+        graphed = GraphedTrainStep(step, state, batch)
+        for name in ("graphed", "eager", "graphed"):
+            fn = graphed if name == "graphed" else step
+            report(f"{tag}, {name}", "step", args.batches,
+                   profiled(lambda: fn(state, batch), args.batches))
+
+
+def sync_sites(fn) -> dict:
+    """{file:line: count} of the calls that made the host wait for the card
+    in one fn(), by the Python line that made each (torch's sync debug
+    mode warns at every synchronising call)."""
+    import collections
+    import os
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return dict(collections.Counter(f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                                    if "called a synchronizing CUDA operation" in str(w.message)))
 
 
 def nccl_group_of_one():
@@ -232,6 +285,12 @@ def main() -> int:
     ap.add_argument("--train_step", type=int, nargs="?", const=8, default=None, metavar="B",
                     help="profile the GAN train step at batch B (default 8) instead")
     ap.add_argument("--f32", action="store_true", help="with --train_step: f32 models, TF32 off")
+    ap.add_argument("--tf32", action="store_true", help="with --f32: TF32 on in cuBLAS and cuDNN")
+    ap.add_argument("--deterministic", action="store_true",
+                    help="with --train_step: torch's deterministic algorithms")
+    ap.add_argument("--graph", action="store_true",
+                    help="with --train_step: then the step captured as one CUDA graph "
+                         "(train/graph.py), in turns with the eager step")
     ap.add_argument("--group", action="store_true",
                     help="with --train_step: also the step sharded in an NCCL group of one")
     args = ap.parse_args()

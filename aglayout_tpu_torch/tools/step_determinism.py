@@ -10,7 +10,8 @@ with TF32 off, or with `--tf32` on, the scene corpus), in torch's default mode o
 deterministic`) under `torch.use_deterministic_algorithms(True,
 warn_only=True)` with `CUBLAS_WORKSPACE_CONFIG=:4096:8` set before the
 first cuBLAS call. After each step of `--check_at` it takes a SHA-256 of
-every net's `state_dict`, Adam's moments and the step's metrics, and holds
+every net's `state_dict`, Adam's moments and counts, the draws' generator
+and the step's metrics, and holds
 the second run's params against the first's. Each run's ms/step is the mean
 of its steps' CUDA-event times after the first `WARMUP`.
 In deterministic mode it lists the ops that warned that they have no
@@ -20,6 +21,11 @@ Prints one JSON object (and writes it to `--out`): per run its ms/step and
 fingerprints, whether the runs are bit-equal at each checked step, the
 largest param difference there, the warning ops, the card and the
 versions. Run the modes as separate processes, in turns, to time them.
+
+On the card the second run takes the step captured as one CUDA graph
+(`train/graph.py`), so the two runs hold the graphed step against the
+eager one, and their ms/step stand side by side (the graph's warm-up and
+capture come before its first timed step); on the host both are eager.
 """
 
 from __future__ import annotations
@@ -52,26 +58,29 @@ def parser() -> argparse.ArgumentParser:
 
 
 def fingerprint(state, metrics) -> str:
-    """SHA-256 of every net's `state_dict`, Adam's moments and the metrics."""
+    """SHA-256 of every net's `state_dict`, Adam's moments and counts, the
+    draws' generator and the metrics."""
     h = hashlib.sha256()
     for name, module in state.models.items():
         for t in module.state_dict().values():
             h.update(t.detach().cpu().contiguous().numpy().tobytes())
         for s in state.opt[name].state.values():
-            for k in ("exp_avg", "exp_avg_sq"):
+            for k in ("exp_avg", "exp_avg_sq", "step"):
                 h.update(s[k].cpu().numpy().tobytes())
+    h.update(state.rng.get_state().numpy().tobytes())
     for k in sorted(k for k in metrics if k != "images"):
         h.update(metrics[k].detach().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
-def one_run(args, overrides) -> dict:
-    """One run of `args.steps` steps from a fresh state: its ms/step, its
-    fingerprints and params (on the host) at `args.check_at`, the ops
-    that warned."""
+def one_run(args, overrides, graphed: bool = False) -> dict:
+    """One run of `args.steps` steps from a fresh state, eager or
+    `graphed`: its ms/step, its fingerprints and params (on the host) at
+    `args.check_at`, the ops that warned."""
     import torch
 
     from aglayout_tpu_torch.tools.train_evidence import setup
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
     from aglayout_tpu_torch.utils.device import tf32
 
     device, cfg, corpus, state, step = setup(args, "step_determinism", **overrides)
@@ -79,6 +88,8 @@ def one_run(args, overrides) -> dict:
     times, prints, params, ops = [], {}, {}, set()
     with tf32(args.tf32), warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
+        if graphed:
+            step = GraphedTrainStep(step, state, corpus[0])
         for i in range(args.steps):
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -116,7 +127,7 @@ def measure(args, **overrides) -> dict:
 
     with (deterministic(warn_only=True) if args.mode == "deterministic"
           else contextlib.nullcontext()):
-        runs = [one_run(args, overrides) for _ in range(2)]
+        runs = [one_run(args, overrides, graphed) for graphed in (False, args.device == "cuda")]
     a, b = runs
     out = {
         "mode": args.mode,
@@ -124,6 +135,7 @@ def measure(args, **overrides) -> dict:
         "image_size": args.image_size,
         "batch_size": args.batch_size,
         "tf32": args.tf32,
+        "runs": ["eager", "graphed" if args.device == "cuda" else "eager"],
         "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
         "ms_per_step": [r["ms_per_step"] for r in runs],
         "fingerprints": {str(k): [r["fingerprints"][k] for r in runs] for k in args.check_at},

@@ -14,8 +14,10 @@ modulo the corpus length). The steps multiply in f32 with TF32 off in
 cuBLAS and cuDNN, or with `--tf32` on. With `--deterministic` the steps run
 under torch's deterministic algorithms (`utils/device.deterministic`), and
 two runs of one seed repeat themselves bit for bit on the card
-(`tools/step_determinism`). The metrics come to the host every
-`--log_every` steps.
+(`tools/step_determinism`). On the card the step runs as one captured CUDA
+graph (`train/graph.py`), which equals the eager step bit for bit in
+deterministic mode; on the host it runs eagerly. The metrics come
+to the host every `--log_every` steps.
 
 A run can be cut into segments: with `--segment_steps S --state_dir DIR` it
 stops after S more steps and saves the whole train state to DIR
@@ -313,6 +315,7 @@ def run(args, **overrides):
     import torch
 
     from aglayout_tpu_torch.bench import card
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
     from aglayout_tpu_torch.utils.checkpoint import restore_state, save_state
     from aglayout_tpu_torch.utils.device import deterministic, tf32
 
@@ -339,9 +342,12 @@ def run(args, **overrides):
         os.makedirs(args.out, exist_ok=True)
         segments = _resumed_segments(progress_path, start, argd)
         hist = _resumed_metrics(metrics_path, start, args.log_every)
+        graphed = device.type == "cuda"
         t0 = time.time()
         with contextlib.nullcontext() if cfg.bf16 else tf32(args.tf32), \
                 open(metrics_path, "a") as f:
+            if graphed and end > start:  # captured under the steps' TF32 and determinism
+                step = GraphedTrainStep(step, state, corpus[start % len(corpus)])
             for i in range(start, end):
                 state, metrics = step(state, corpus[i % len(corpus)])
                 if (i + 1) % args.log_every:
@@ -360,7 +366,7 @@ def run(args, **overrides):
 
     if end > start:  # the segment's entry first: a state without it would lose its seconds
         segments.append({"from_step": start, "to_step": end, "seconds": wall,
-                         "card": card(device), "run_args": argd})
+                         "card": card(device), "graphed": graphed, "run_args": argd})
         with open(progress_path, "w") as f:
             json.dump({"steps": args.steps, "segments": segments}, f, indent=2)
         if args.state_dir:

@@ -27,6 +27,7 @@ from aglayout_tpu_torch.config import Config
 from aglayout_tpu_torch.data.synthetic import batch_to_torch
 from aglayout_tpu_torch.data.vocab import attribute_pos_weight
 from aglayout_tpu_torch.parallel import Group, make_sharded_train_step
+from aglayout_tpu_torch.train.graph import GraphedTrainStep
 from aglayout_tpu_torch.train.state import create_train_state
 from aglayout_tpu_torch.train.step import make_train_step
 from aglayout_tpu_torch.utils.checkpoint import restore_state, save_state
@@ -117,7 +118,9 @@ def train(cfg: Config, loader=None, niter: int | None = None, use_tensorboard: b
     JAX's layout will do (the synthetic stream). If `window_rates` is a
     list, each log window's steps/s is appended to it. In a process group
     (`parallel.maybe_init_distributed`) it trains data-parallel over all
-    its ranks, `cfg.batch_size` being the global batch."""
+    its ranks, `cfg.batch_size` being the global batch. On one card the
+    step runs as one captured CUDA graph (`train/graph.py`); a sharded
+    step and the CPU's run eagerly."""
     group = Group()
     if cfg.num_devices not in (0, group.size):
         raise ValueError(
@@ -165,6 +168,8 @@ def train(cfg: Config, loader=None, niter: int | None = None, use_tensorboard: b
         # one-batch prefetch: the next batch's copy from pinned memory is
         # queued before the step, without blocking the host
         pending = prep(next(it))
+        if device.type == "cuda" and not group.on:
+            step_fn = GraphedTrainStep(step_fn, state, pending)
         t0 = time.time()
         for i in range(start, niter):
             batch = pending

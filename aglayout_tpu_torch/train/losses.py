@@ -31,7 +31,9 @@ def bce_logits(logits, target, weight=None, pos_weight=None, group=None):
     elements without it. target: a constant or a tensor; pos_weight (A,)
     multiplies the positive term per feature (torch's semantics)."""
     logits = logits.float()
-    target = torch.as_tensor(target, dtype=torch.float32, device=logits.device).expand_as(logits)
+    # a constant fills on the device: no host-to-device copy inside the step
+    target = (target.to(logits.device, torch.float32).expand_as(logits)
+              if isinstance(target, torch.Tensor) else torch.full_like(logits, target))
     soft = torch.log1p(torch.exp(-logits.abs()))
     log_sig = soft + torch.clamp(-logits, min=0.0)  # -log sigmoid(x)
     log_one_minus = soft + torch.clamp(logits, min=0.0)  # -log(1 - sigmoid(x))

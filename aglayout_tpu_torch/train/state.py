@@ -2,7 +2,8 @@
 
 Port of `aglayout_tpu/train/state.py`. The modules hold their own
 parameters and statistics (JAX's `NetState.params` and `.stats`), each
-`torch.optim.Adam` its moments and count (`NetState.opt`), and a
+`torch.optim.Adam` its moments and count (`NetState.opt`; capturable on
+the card, its count on the device), and a
 `torch.Generator` on the device the random draws (`TrainState.rng`), so a
 checkpoint of all of them resumes exactly.
 """
@@ -55,9 +56,14 @@ def build_models(cfg: Config, device, seed: int = 0) -> Models:
 
 
 def adam(cfg: Config, module: nn.Module) -> torch.optim.Adam:
-    """Adam(lr, betas=(0.5, 0.999), eps=1e-8) for every net (train64.py:111-114)."""
+    """Adam(lr, betas=(0.5, 0.999), eps=1e-8) for every net (train64.py:111-114).
+    On the card it is capturable, as optax's Adam is compiled: its step
+    count and bias correction stay on the device in f32, so the step can be
+    captured as one CUDA graph (`train/graph.py`). torch takes no
+    capturable Adam on the CPU, where the count stays on the host."""
+    cuda = next(module.parameters()).is_cuda
     return torch.optim.Adam(module.parameters(), lr=cfg.learning_rate,
-                            betas=(cfg.beta1, cfg.beta2), eps=1e-8)
+                            betas=(cfg.beta1, cfg.beta2), eps=1e-8, capturable=cuda)
 
 
 def create_train_state(cfg: Config, device, seed: int = 0) -> TrainState:

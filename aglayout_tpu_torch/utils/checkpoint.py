@@ -74,10 +74,14 @@ def restore_state(model_dir: str, state: TrainState, resume: str = "l"):
         m.load_state_dict(payload["nets"][name])
     for name, opt in state.opt.items():
         sd = payload["opt"][name]
-        # Adam keeps its step counts on the CPU unless it is capturable or
-        # fused; map_location moved them with the rest
+        # the optimizer keeps its own kind whichever kind saved: a capturable
+        # Adam (the card's) takes its f32 step counts onto the device, another
+        # keeps them on the CPU, where map_location may have moved them from
+        capturable = opt.param_groups[0]["capturable"]
+        for group in sd["param_groups"]:
+            group["capturable"] = capturable
         for s in sd["state"].values():
-            s["step"] = s["step"].cpu()
+            s["step"] = s["step"].to(device if capturable else "cpu", torch.float32)
         opt.load_state_dict(sd)
     state.rng.set_state(payload["rng"].cpu())
     state.step = payload["step"]

@@ -101,10 +101,11 @@ raises, and the run then exits non-zero without printing a result:
  13. trainer, the 128^2 model at its full width, B=8, bf16, through the
      port's train entry points (no kernel of the port in a train step):
      (a) `train/loop.train` on the synthetic stream for 12 steps (log_step
-     4, save_step 6, save_num 2, TensorBoard at step 12): 3 log lines,
-     checkpoints at steps 6 and 12 only, metrics finite, the last log
-     window's ms/step beside `bench.run_train`'s (CUDA events) in the same
-     call; (b) the step-12 checkpoint restored twice into fresh states:
+     4, save_step 6, save_num 2, TensorBoard at step 12; one process on the
+     card, so the step runs as one CUDA graph, `train/graph.py`): 3 log
+     lines, checkpoints at steps 6 and 12 only, metrics finite, the last log
+     window's ms/step beside `bench.run_train`'s eager and graphed ones
+     (CUDA events) in the same call; (b) the step-12 checkpoint restored twice into fresh states:
      every param, buffer, Adam state tensor, the CUDA generator's state and
      the step `torch.equal`; its size, save and restore seconds; then one
      more step from the original and from both restored states on one
@@ -163,7 +164,9 @@ raises, and the run then exits non-zero without printing a result:
      128^2 limits of the one-process image; (d) `python -m
      torch.distributed.run --nproc_per_node 1 -m aglayout_tpu_torch.train
      --synthetic --image_size 128` for 3 steps: rc 0, 3 log lines, its one
-     checkpoint; (e) on the seeded synthetic stream at the 128^2 model's
+     checkpoint (a process of its own, started when phase 16 starts and
+     run beside it, checked when phase 16 ends: "parallel (d)" in the
+     phase_seconds line is the wait for it then); (e) on the seeded synthetic stream at the 128^2 model's
      width (179 classes, 106 attributes, B=8, O=10), f32 with TF32 off:
      `train_crop_classifier` at full depth for 3 steps on 224^2 crops
      (finite losses), a fresh ResNet-50 drawn as flax draws JAX's (each
@@ -206,7 +209,19 @@ raises, and the run then exits non-zero without printing a result:
      saved step-20 states equal, and each run's kernel check (its samples'
      forward, kernels on against off) K1 and K2 three launches each and
      within 1e-4. Its files (under build/chip_smoke_tools/) are deleted
-     when the phase ends.
+     when the phase ends. Every `train_evidence` run here takes the
+     graphed step (`train/graph.py`), the resumed one captured anew after
+     its restore.
+ 17. graph: the train step captured as one CUDA graph (`train/graph.py`)
+     against the eager step, at `train_evidence`'s set-up (the published
+     widths, B=8, 4 corpus batches), deterministic, at 64^2 in f32 with
+     TF32 off and at 128^2 with TF32 on (as the evidence runs): two fresh
+     states of one seed, the capture leaving its state where it was, then
+     20 steps of each in turns, every metric and grid bit-equal at every
+     step, and one more of each under torch's sync debug mode, whose
+     host waits it counts; after them every parameter, buffer, Adam moment
+     and count, the draws' generator and the step `torch.equal`; no kernel
+     of the port launched; steps/s of each by CUDA events over steps 3-20.
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -1604,7 +1619,8 @@ def phase_trainer(smi: str):
             f"checkpoints at steps {saved_steps(model_dir)}, metrics finite {finite}; steps/s by "
             f"log window {[round(r, 3) for r in windows]} (the first holds the warm-up, the second "
             f"the save at step 6): {1e3 / windows[-1]:.1f} ms/step in the last, against "
-            f"bench --train_step 8's {bench['ms_per_step']:.1f} ms/step (CUDA events) | {smi}")
+            f"bench --train_step 8's {bench['ms_per_step']:.1f} ms/step eager and "
+            f"{bench['graphed']['ms_per_step']:.1f} graphed (CUDA events) | {smi}")
         if len(lines) != 3 or saved_steps(model_dir) != [6, 12] or not finite or state.step != 12:
             raise AssertionError("trainer (a): log lines, checkpoints or metrics off")
 
@@ -2132,8 +2148,9 @@ def parallel_child(part: str) -> int:
 def phase_parallel(smi: str, nccl: list):
     """Data parallelism (`parallel/mesh.py`) and the crop classifiers on the
     card: (a)-(c) in child processes (`parallel_child`; (a)'s rank `nccl`,
-    from `_spawn`), (d) the train entry point under torch's launcher, (e)
-    the classifiers in this process."""
+    from `_spawn`), (e) the classifiers in this process; (d), the train
+    entry point under torch's launcher, runs beside phase 16
+    (`launcher_start`, `launcher_check`)."""
     import shutil
     from pathlib import Path
 
@@ -2183,29 +2200,51 @@ def phase_parallel(smi: str, nccl: list):
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_parallel"
     shutil.rmtree(root, ignore_errors=True)
     try:
-        # ---- (d) the train entry point under torch's launcher
-        t1 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-             "1", "-m", "aglayout_tpu_torch.train", "--synthetic", "--image_size", "128",
-             "--batch_size", "8", "--bf16", "true", "--niter", "3", "--log_step", "1",
-             "--save_step", "3", "--allow_uniform_matrix", "true", "--use_tensorboard", "false",
-             "--path", str(root / "d"), "--vg_dir", str(root / "d")],
-            cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=600)
-        lines = [line for line in proc.stdout.splitlines() if line.startswith("iter [")]
-        saved = sorted(p.name for p in (root / "d").rglob("step_*.pt"))
-        log(f"[parallel] (d) python -m torch.distributed.run --nproc_per_node 1 -m "
-            f"aglayout_tpu_torch.train --synthetic --image_size 128 --niter 3: rc "
-            f"{proc.returncode} in {time.perf_counter() - t1:.1f} s, {len(lines)} log lines, "
-            f"checkpoints {saved}")
-        if proc.returncode != 0 or len(lines) != 3 or saved != ["step_3.pt"]:
-            raise AssertionError(f"parallel (d): {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
-        # ---- (e) the classifiers on the seeded synthetic stream
+        # ---- (e) the classifiers on the seeded synthetic stream ((d): `launcher_start`)
         phase_classifiers(smi, root / "e")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"[parallel] phase done in {time.perf_counter() - t0:.1f} s")
+
+
+LAUNCHER_ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                             "chip_smoke_launcher")
+
+
+def launcher_start() -> tuple:
+    """Phase 15 (d), started now in a process of its own: the train entry
+    point under torch's launcher, 3 steps at 128^2 (its checkpoints under
+    `LAUNCHER_ROOT`). Returns (the process, its start)."""
+    import shutil
+
+    shutil.rmtree(LAUNCHER_ROOT, ignore_errors=True)
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         "1", "-m", "aglayout_tpu_torch.train", "--synthetic", "--image_size", "128",
+         "--batch_size", "8", "--bf16", "true", "--niter", "3", "--log_step", "1",
+         "--save_step", "3", "--allow_uniform_matrix", "true", "--use_tensorboard", "false",
+         "--path", LAUNCHER_ROOT, "--vg_dir", LAUNCHER_ROOT],
+        cwd=os.path.dirname(os.path.abspath(__file__)), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def launcher_check(started: tuple) -> None:
+    """Phase 15 (d)'s checks, once `launcher_start`'s process has ended:
+    rc 0, 3 log lines, its one checkpoint."""
+    from pathlib import Path
+
+    proc, t1 = started
+    out, err = proc.communicate(timeout=600)
+    lines = [line for line in out.splitlines() if line.startswith("iter [")]
+    saved = sorted(p.name for p in Path(LAUNCHER_ROOT).rglob("step_*.pt"))
+    log(f"[parallel] (d) python -m torch.distributed.run --nproc_per_node 1 -m "
+        f"aglayout_tpu_torch.train --synthetic --image_size 128 --niter 3 (beside phase 16): "
+        f"rc {proc.returncode} in {time.perf_counter() - t1:.1f} s, {len(lines)} log lines, "
+        f"checkpoints {saved}")
+    if proc.returncode != 0 or len(lines) != 3 or saved != ["step_3.pt"]:
+        raise AssertionError(f"parallel (d): {out[-2000:]} {err[-2000:]}")
 
 
 def phase_classifiers(smi: str, root):
@@ -2614,7 +2653,75 @@ def evidence_resume(started: tuple, root, smi: str) -> None:
             raise AssertionError(f"tools (e): kernel check {c}")
 
 
+GRAPH_STEPS = 20  # phase 17's steps of each kind
+
+
+def phase_graph(smi: str):
+    """Phase 17: the graphed train step against the eager one, bit for bit."""
+    from aglayout_tpu_torch.profile_generate import sync_sites
+    from aglayout_tpu_torch.tools.train_evidence import parser, setup
+    from aglayout_tpu_torch.train.compare import state_mismatches
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
+    from aglayout_tpu_torch.utils.device import deterministic, tf32
+
+    t0 = time.perf_counter()
+    for size in (64, 128):
+        label = f"{size}^2 B=8 f32 (TF32 {'on' if size == 128 else 'off'}) deterministic"
+        with deterministic(), tf32(size == 128):
+            args = parser().parse_args(["--image_size", str(size), "--corpus_batches", "4",
+                                        "--device", "cuda"])
+            _, _, corpus, eager_state, eager = setup(args)
+            _, _, _, graph_state, step = setup(args)
+            t1 = time.perf_counter()
+            graphed = GraphedTrainStep(step, graph_state, corpus[0])
+            capture_s = time.perf_counter() - t1
+            # what the warm-up moved must be back; the Adam state it made, zero
+            undone = [m for m in state_mismatches(eager_state, graph_state)
+                      if not m.startswith("opt.")]
+            undone += [f"opt.{n}" for n, opt in graph_state.opt.items()
+                       if any(v.any() for s in opt.state.values() for v in s.values())]
+            runs = (("eager", eager, eager_state), ("graphed", graphed, graph_state))
+            times, diverged = {name: [] for name, _, _ in runs}, []
+            launch_counts(reset=True)
+            for i in range(GRAPH_STEPS):
+                out = {}
+                for name, fn, state in runs:
+                    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                    ev[0].record()
+                    out[name] = fn(state, corpus[i % len(corpus)])[1]
+                    ev[1].record()
+                    times[name].append(ev)
+                a, b = out["eager"], out["graphed"]
+                bad = [k for k in a if k != "images" and not torch.equal(a[k], b[k])]
+                bad += [k for k in a["images"] if not torch.equal(a["images"][k], b["images"][k])]
+                if bad:
+                    diverged.append((i + 1, bad))
+            waits = {name: sum(sync_sites(lambda fn=fn, st=state: fn(st, corpus[0])).values())
+                     for name, fn, state in runs}
+            torch.cuda.synchronize()
+            launches = {k: v for k, v in launch_counts().items() if v}
+            rates = {name: (GRAPH_STEPS - 2) * 1e3 / sum(x.elapsed_time(y) for x, y in evs[2:])
+                     for name, evs in times.items()}
+            bad_state = state_mismatches(eager_state, graph_state)
+        log(f"[graph] {label}: capture {capture_s:.2f} s (3 warm-up steps, undone: "
+            f"{undone or 'all equal'}); {GRAPH_STEPS} steps each, every metric and grid "
+            f"bit-equal at every step: {not diverged} {diverged[:3]}; after one more each, the "
+            f"states {'torch.equal' if not bad_state else bad_state[:8]}; steps/s (CUDA events, "
+            f"steps 3-{GRAPH_STEPS}) eager {rates['eager']:.3f}, graphed {rates['graphed']:.3f} "
+            f"({rates['graphed'] / rates['eager']:.2f}x); host waits a step (sync debug mode) "
+            f"eager {waits['eager']}, graphed {waits['graphed']}; kernel launches "
+            f"{launches or 'none'} | {smi}")
+        if undone or diverged or bad_state or launches or waits["graphed"] or waits["eager"]:
+            raise AssertionError(f"graph {label}: the graphed step is not the eager step, a "
+                                 f"kernel launched ({launches}) or the host waited ({waits})")
+        del eager_state, graph_state, eager, graphed, step, corpus
+        torch.cuda.empty_cache()
+    log(f"[graph] phase done in {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
+    import shutil
+
     seconds = {}
 
     def timed(name, fn, *args, **kw):  # each phase's seconds, for the phase_seconds line
@@ -2661,7 +2768,14 @@ def main() -> int:
         timed("parallel", phase_parallel, smi, nccl)
     finally:
         reap(*nccl)
-    timed("tools", phase_tools, smi)
+    launcher = launcher_start()  # phase 15 (d), beside phase 16
+    try:
+        timed("tools", phase_tools, smi)
+        timed("parallel (d)", launcher_check, launcher)
+    finally:
+        reap(launcher[0])
+        shutil.rmtree(LAUNCHER_ROOT, ignore_errors=True)
+    timed("graph", phase_graph, smi)
     for name, row in rows.items():
         row["launches"] = launches[name]
     seconds["total"] = round(time.perf_counter() - t_main, 1)

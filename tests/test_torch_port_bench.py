@@ -107,6 +107,7 @@ def test_train_step_on_cpu_gives_the_json_line(extra, capsys, monkeypatch):
     assert math.isfinite(out["value"]) and out["value"] > 0 and out["ms_per_step"] > 0
     assert set(out["phase_ms"]) == set(bench.PHASES) and 0 < out["d_phase_share"] < 1
     assert out["peak_memory_gib"] is None and out["card"].startswith("cpu")
+    assert out["graphed"] is None  # the graph is the card's; the CPU times the eager step
     assert out["config"]["remat"] is bool(extra) and out["config"]["batch_size"] == 3
 
 

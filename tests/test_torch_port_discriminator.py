@@ -33,6 +33,7 @@ from aglayout_tpu_torch.models import (
     build_discriminators,
     init_weights,
 )
+from aglayout_tpu_torch.models.discriminator import avg_pool2
 from aglayout_tpu_torch.utils import jax_import
 from tests.torch_port_common import nchw, nhwc
 
@@ -239,8 +240,7 @@ def test_residual_block_shortcut_reads_relu_of_x():
 
     def unactivated_shortcut(x):
         h = block.resi["3"](torch.relu(block.resi["1"](torch.relu(x), False)), False)
-        return torch.nn.functional.avg_pool2d(h, 2) + torch.nn.functional.avg_pool2d(
-            block.sc(x, False), 2)
+        return avg_pool2(h) + avg_pool2(block.sc(x, False))  # the block's own pool
 
     with torch.no_grad():
         got = block(x, False)
@@ -268,3 +268,19 @@ def test_build_discriminators_follows_the_config(image_size, blocks):
     assert torch.equal(again[key], att.state_dict()[key]) and not torch.equal(other[key], again[key])
     u = att.state_dict()["main.1.resi.1.weight_u"]
     assert abs(u.norm().item() - 1) < 1e-6
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_avg_pool2_is_avg_pool2d(dtype):
+    """The Ds' 2x2 pool (a reshape and a mean) against F.avg_pool2d: the
+    same values up to the order of the four terms' sum, and the same
+    gradient, a quarter of the output's gradient on each of its four
+    pixels."""
+    g = torch.Generator().manual_seed(9)
+    x = torch.randn(3, 5, 16, 8, generator=g).to(dtype).requires_grad_()
+    y = torch.randn(3, 5, 8, 4, generator=g).to(dtype)
+    got, want = avg_pool2(x), torch.nn.functional.avg_pool2d(x, 2)
+    torch.testing.assert_close(got, want, rtol=0, atol=2e-7 if dtype == torch.float32 else 0)
+    (gx,) = torch.autograd.grad((got * y).sum(), x)
+    (wx,) = torch.autograd.grad((want * y).sum(), x)
+    assert torch.equal(gx, wx)

@@ -1064,8 +1064,9 @@ def test_fresh_train_state_on_card_starts_at_jax_bn_state(cuda):
 
 def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     """A CUDA state after one step, saved and restored into a fresh one:
-    every tensor, the Adams (moments on the card, step counts on the CPU as
-    a fresh Adam keeps them), the CUDA generator's state and the step."""
+    every tensor, the Adams (moments and, capturable, step counts on the
+    card, as a fresh Adam there keeps them), the CUDA generator's state and
+    the step."""
     from aglayout_tpu_torch.train.compare import state_mismatches
     from aglayout_tpu_torch.train.state import create_train_state
     from aglayout_tpu_torch.utils.checkpoint import restore_state, save_state
@@ -1078,7 +1079,7 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     assert restored.rng.device.type == "cuda"
     for opt in restored.opt.values():
         for s in opt.state.values():
-            assert s["step"].device.type == "cpu" and s["exp_avg"].is_cuda
+            assert s["step"].is_cuda and s["exp_avg"].is_cuda
     assert torch.equal(torch.randn(7, generator=state.rng, device=cuda),
                        torch.randn(7, generator=restored.rng, device=cuda))
 
@@ -1188,3 +1189,202 @@ def test_run_inference_on_card_launches_six_each(cuda, tmp_path):
     assert set(summary) == SUMMARY_KEYS
     assert {k: v for k, v in launch_counts().items() if v} == {k: 12 * n for k, n in PATH128.items()}
     assert len([p for p in tmp_path.iterdir() if "modified" not in p.name]) == 4 * 2 * 2
+
+
+# ---- the train step as one CUDA graph (train/graph.py)
+
+GRAPH_STEPS = 20
+
+
+def _graph_setup(size: int):
+    """`train_evidence`'s set-up on the card at `size`, B=8, 4 corpus
+    batches: (corpus, a fresh state of the config's seed, its eager step)."""
+    from aglayout_tpu_torch.tools.train_evidence import parser, setup
+
+    args = parser().parse_args(["--image_size", str(size), "--corpus_batches", "4",
+                                "--device", "cuda"])
+    _, _, corpus, state, step = setup(args)
+    return corpus, state, step
+
+
+def _undone(fresh, captured) -> list:
+    """What differs between a fresh state and one a capture (its warm-up
+    undone) started from it: every net, the draws and the step as
+    `state_mismatches` sees them, and any Adam state of `captured` that is
+    not zero (the warm-up made it; a fresh Adam's first step finds zero
+    moments and a count of 0)."""
+    from aglayout_tpu_torch.train.compare import state_mismatches
+
+    bad = [m for m in state_mismatches(fresh, captured) if not m.startswith("opt.")]
+    return bad + [f"opt.{name}" for name, opt in captured.opt.items()
+                  if any(v.any() for s in opt.state.values() for v in s.values())]
+
+
+def _same_metrics(a, b) -> list:
+    """The metrics and grids of two steps that differ in any bit."""
+    bad = [k for k in a if k != "images" and not torch.equal(a[k], b[k])]
+    return bad + [k for k in a["images"] if not torch.equal(a["images"][k], b["images"][k])]
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_graphed_step_equals_eager_bit_for_bit(cuda, size):
+    """From two fresh states of one seed, deterministic, f32 with TF32 off
+    at 64^2 and on at 128^2 (as the evidence runs): the capture leaves its
+    state where it was, and 20 graphed steps equal 20 eager steps of the
+    (capturable) step bit for bit: every metric and grid at every step, and
+    after them every parameter, buffer (BN statistics, spectral-norm u and
+    v), Adam moment and count, the draws' generator and the step."""
+    from aglayout_tpu_torch.train.compare import state_mismatches
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
+    from aglayout_tpu_torch.utils.device import deterministic, tf32
+
+    with deterministic(), tf32(size == 128):
+        corpus, eager_state, eager = _graph_setup(size)
+        _, graph_state, step = _graph_setup(size)
+        graphed = GraphedTrainStep(step, graph_state, corpus[0])
+        assert _undone(eager_state, graph_state) == []
+        for i in range(GRAPH_STEPS):
+            _, want = eager(eager_state, corpus[i % len(corpus)])
+            _, got = graphed(graph_state, corpus[i % len(corpus)])
+            assert _same_metrics(want, got) == [], i
+        assert eager_state.step == graph_state.step == GRAPH_STEPS
+        assert state_mismatches(eager_state, graph_state) == []
+
+
+_FRESH_RUN = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from aglayout_tpu_torch.tools.train_evidence import parser, setup
+from aglayout_tpu_torch.train.graph import GraphedTrainStep
+from aglayout_tpu_torch.utils.device import deterministic, tf32
+with deterministic(), tf32(False):
+    _, _, corpus, state, step = setup(parser().parse_args(["--device", "cuda"]))
+    if sys.argv[2] == "graphed":
+        step = GraphedTrainStep(step, state, corpus[0])
+    rows = []
+    for i in range(20):
+        _, m = step(state, corpus[i])
+        rows.append(torch.stack([m[k].float() for k in sorted(m) if k != "images"]).tolist())
+print(json.dumps(rows))
+"""
+
+
+def test_graphed_step_in_a_fresh_process_equals_eager(cuda):
+    """`train_evidence`'s 64^2 set-up (32 corpus batches), deterministic,
+    TF32 off, 20 steps eager in one new process and graphed in another:
+    every metric at every step equal. Warmed up on a side stream, the
+    graph parted from the other process's eager run at step 2, though it
+    equalled an eager run in its own process."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rows = {kind: json.loads(subprocess.run(
+        [sys.executable, "-c", _FRESH_RUN, repo, kind], capture_output=True, text=True,
+        check=True, timeout=600).stdout.splitlines()[-1]) for kind in ("eager", "graphed")}
+    assert rows["eager"] == rows["graphed"]
+
+
+def test_graphed_step_resumes_from_a_checkpoint_bit_for_bit(cuda, tmp_path):
+    """64^2, deterministic, TF32 off: 10 graphed steps, the state saved
+    after the 5th under the graph, against a fresh state restored from that
+    save and captured anew for steps 6-10: the same metrics at each and the
+    same state after them, bit for bit."""
+    from aglayout_tpu_torch.train.compare import state_mismatches
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
+    from aglayout_tpu_torch.utils.checkpoint import restore_state, save_state
+    from aglayout_tpu_torch.utils.device import deterministic
+
+    with deterministic():
+        corpus, state, step = _graph_setup(64)
+        graphed = GraphedTrainStep(step, state, corpus[0])
+        later = []
+        for i in range(10):
+            _, m = graphed(state, corpus[i % len(corpus)])
+            if i + 1 == 5:
+                save_state(str(tmp_path), 5, state)
+            if i >= 5:
+                later.append({k: v.clone() for k, v in m.items() if k != "images"})
+        _, resumed, step2 = _graph_setup(64)
+        assert restore_state(str(tmp_path), resumed, "l")[1] == 5
+        graphed2 = GraphedTrainStep(step2, resumed, corpus[5 % len(corpus)])
+        for i in range(5, 10):
+            _, m = graphed2(resumed, corpus[i % len(corpus)])
+            assert all(torch.equal(m[k], later[i - 5][k]) for k in later[i - 5]), i
+        assert state_mismatches(state, resumed) == []
+
+
+def test_graphed_step_refuses_what_it_cannot_replay(cuda):
+    """Draws, marks, another state, a batch of another layout, a sharded
+    step and a plain (non-capturable) Adam each raise; no path runs the
+    eager step. The eager step makes the host wait for the card nowhere
+    (sync debug mode "error"), which is what lets it be captured."""
+    from aglayout_tpu_torch.parallel import Group, make_sharded_train_step
+    from aglayout_tpu_torch.train.compare import step_draws
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
+
+    cfg = config_for(64, **TRAIN_SMALL)
+    _, state, step = _small_train(cfg, cuda)
+    batch = _small_batch(cfg, cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(state, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    graphed = GraphedTrainStep(step, state, batch)
+    with pytest.raises(ValueError, match="eager step"):
+        graphed(state, batch, draws=step_draws(cfg, 0))
+    with pytest.raises(ValueError, match="eager step"):
+        graphed(state, batch, mark=lambda name: None)
+    with pytest.raises(ValueError, match="another state"):
+        graphed(_small_train(cfg, cuda)[1], batch)
+    with pytest.raises(ValueError, match="layout"):
+        graphed(state, {k: v for k, v in batch.items() if k != "masks"})
+    with pytest.raises(RuntimeError, match="sharded"):
+        GraphedTrainStep(make_sharded_train_step(step, Group()), state, batch)
+    plain = _small_train(cfg, cuda)[1]
+    plain.opt["g"] = torch.optim.Adam(plain.models.g.parameters(), lr=cfg.learning_rate)
+    with pytest.raises(RuntimeError, match="not capturable"):
+        GraphedTrainStep(step, plain, batch)
+
+
+def _small_train(cfg, device):
+    """(matrix, a fresh state, its eager step) at `cfg` on `device`."""
+    from aglayout_tpu_torch.bench import train_inputs
+    from aglayout_tpu_torch.train.state import create_train_state
+    from aglayout_tpu_torch.train.step import make_train_step
+
+    _, matrix, pos_weight = train_inputs(cfg, cfg.batch_size, 0)
+    state = create_train_state(cfg, device, seed=0)
+    return matrix, state, make_train_step(cfg, state.models, matrix, pos_weight)
+
+
+def _small_batch(cfg, device):
+    from aglayout_tpu_torch.bench import train_inputs
+    from aglayout_tpu_torch.data.synthetic import batch_to_torch
+
+    return batch_to_torch(train_inputs(cfg, cfg.batch_size, 0)[0], device)
+
+
+def test_graphed_step_raises_when_the_capture_fails(cuda):
+    """A step that makes the host wait (an `.item()`) cannot be captured:
+    the graph raises, and leaves the state where it was before its warm-up.
+    Last in the file: should a failed capture disturb the CUDA context, no
+    other test of the file runs after it."""
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
+
+    cfg = config_for(64, **TRAIN_SMALL)
+    _, state, step = _small_train(cfg, cuda)
+    batch = _small_batch(cfg, cuda)
+
+    def waits(state, batch):
+        next(state.models.g.parameters()).sum().item()
+        return step(state, batch)
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        GraphedTrainStep(waits, state, batch)
+    assert _undone(_small_train(cfg, cuda)[1], state) == []

@@ -463,6 +463,7 @@ def test_train_evidence_refuses_a_resume_it_cannot_account_for(tmp_path, fault, 
         "steps": 8, "image_size": 64, "batch_size": 3, "corpus_batches": 3, "log_every": 2,
         "deterministic": False, "tf32": False, "device": "cpu", "object_size": 32,
         **{k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"}}
+    assert progress["segments"][0]["graphed"] is False  # the CPU steps eagerly
     extra = ["--tf32"] if fault == "other_args" else []
     if fault == "no_progress":
         os.remove(tmp_path / "run" / "progress.json")
@@ -580,6 +581,8 @@ def test_step_determinism_on_the_host(tmp_path, mode):
     assert len(out["ms_per_step"]) == 2 and all(t > 0 for t in out["ms_per_step"])
     assert json.loads((tmp_path / "det.json").read_text()) == out
     assert not torch.are_deterministic_algorithms_enabled()
+    assert out["runs"] == ["eager", "eager"]  # the graph is the card's
+
 
 
 def test_compare_evidence_reads_the_committed_runs(tmp_path):

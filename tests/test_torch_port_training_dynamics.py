@@ -4,8 +4,9 @@ tests/test_training_dynamics.py.
   * a live check: on the learnable synthetic-scene corpus (images are
     renders of their layouts) the image reconstruction L1 of the last 8 of
     60 steps must average below 0.8 of the first 8's, at the JAX test's
-    config on the card (`gpu`), and at the CPU tests' small widths over 40
-    steps here;
+    config and seed on the card (`gpu`), under torch's deterministic
+    algorithms so that every run gives the same ratio, and at the CPU
+    tests' small widths over 40 steps here;
   * the committed card run: artifacts/torch_train_evidence/ (8,000 steps
     at the reference's 64^2 config from a fresh state, `python -m
     aglayout_tpu_torch.tools.train_evidence --steps 8000 --deterministic`),
@@ -24,23 +25,31 @@ The file imports no JAX, so it runs where only PyTorch is installed:
 import contextlib
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from aglayout_tpu_torch.bench import TRAIN_SMALL
+if __name__ == "__main__":  # run as a script (`main`): the packages are in the repo
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from aglayout_tpu_torch.bench import TRAIN_SMALL  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EVIDENCE = os.path.join(REPO, "artifacts", "torch_train_evidence")
 EVIDENCE_128 = os.path.join(REPO, "artifacts", "torch_train_evidence_128")
 JAX_EVIDENCE_128 = os.path.join(REPO, "artifacts", "train_evidence_128")
+# the JAX test's config (tests/test_training_dynamics.py), 60 steps of it
+JAX_TEST_CONFIG = dict(batch_size=4, max_objects=3, image_size=64, object_size=32,
+                       num_classes=12, clstm_layers=1, resi_num=1)
+JAX_TEST_STEPS = 60
 
 
-def rec_l1_curve(device, steps: int, **cfg_kw):
-    """The G/rec_img of `steps` train steps cycling over 4 batches of
-    `synthetic_scene_batch(RandomState(11))`, as the JAX test draws them (f32,
-    TF32 off)."""
+def rec_l1_curve(device, steps: int, seed: int = 0, **cfg_kw):
+    """The G/rec_img of `steps` train steps of a fresh state of `seed`,
+    cycling over 4 batches of `synthetic_scene_batch(RandomState(11))`, as
+    the JAX test draws them (f32, TF32 off)."""
     from aglayout_tpu_torch.config import Config
     from aglayout_tpu_torch.data.synthetic import (
         batch_to_torch,
@@ -53,7 +62,7 @@ def rec_l1_curve(device, steps: int, **cfg_kw):
     from aglayout_tpu_torch.utils.device import no_tf32
 
     cfg = Config(**cfg_kw)
-    state = create_train_state(cfg, device, seed=0)
+    state = create_train_state(cfg, device, seed=seed)
     rng = np.random.RandomState(11)
     corpus = [batch_to_torch(synthetic_scene_batch(rng, cfg.batch_size, cfg.max_objects,
                                                    cfg.image_size, cfg.num_classes,
@@ -72,20 +81,34 @@ def rec_l1_curve(device, steps: int, **cfg_kw):
     return torch.stack(rec).float().cpu().numpy()
 
 
-def assert_falls(rec, bar: float = 0.8):
+def windows8(rec) -> tuple:
+    """(mean of the first 8, mean of the last 8, their ratio) of a curve."""
     first, last = float(np.mean(rec[:8])), float(np.mean(rec[-8:]))
+    return first, last, last / first
+
+
+def assert_falls(rec, bar: float = 0.8):
+    first, last, _ = windows8(rec)
     assert np.isfinite(rec).all()
     assert last < bar * first, f"rec L1 did not fall: {first:.4f} -> {last:.4f}"
 
 
+def deterministic_curve(device, seed: int = 0):
+    """The JAX test's curve from a fresh state of `seed`, under torch's
+    deterministic algorithms (`utils/device.deterministic`; TF32 off): two
+    runs on one card give the same values, bit for bit."""
+    from aglayout_tpu_torch.utils.device import deterministic
+
+    with deterministic():
+        return rec_l1_curve(device, JAX_TEST_STEPS, seed=seed, **JAX_TEST_CONFIG)
+
+
 @pytest.mark.gpu
 def test_reconstruction_l1_decreases_over_training():
-    """The JAX test's config and steps, on the card."""
+    """The JAX test's config, steps, seed and bar, on the card, deterministic."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    rec = rec_l1_curve("cuda", 60, batch_size=4, max_objects=3, image_size=64, object_size=32,
-                       num_classes=12, clstm_layers=1, resi_num=1)
-    assert_falls(rec)
+    assert_falls(deterministic_curve("cuda"))
 
 
 def test_reconstruction_l1_decreases_over_training_small():
@@ -143,3 +166,112 @@ def test_committed_training_evidence_128():
     assert k["limit"] == 1e-4 and k["max_abs_err_over_max"] <= k["limit"], k
     path = PATH_KERNELS[128]
     assert {name: k["launches"].get(name) for name in path} == dict.fromkeys(path, 3), k
+
+
+def test_committed_dynamics_seed_study():
+    """artifacts/torch_dynamics_seeds/ (`main`): the live test's ratio by
+    seed, the port's deterministic on the card (card.json) and on the
+    host's CPU (host_port.json), seeds 0-7 each, and JAX's own test on the
+    host's CPU for PRNGKey(0) and PRNGKey(1) (host_jax.json). Each file has
+    the JAX test's config, steps and bar; each seed's ratio is its curve's
+    last 8 over its first 8, and passes where it is under the bar; seed 0
+    passes on the card, as the live test asserts there."""
+    d = os.path.join(REPO, "artifacts", "torch_dynamics_seeds")
+    runs = {}
+    for name, seeds in (("card", range(8)), ("host_port", range(8)), ("host_jax", range(2))):
+        with open(os.path.join(d, f"{name}.json")) as f:
+            runs[name] = r = json.load(f)
+        assert r["config"] == JAX_TEST_CONFIG and r["steps"] == JAX_TEST_STEPS and r["bar"] == 0.8
+        assert sorted(r["seeds"], key=int) == [str(i) for i in seeds]
+        for v in r["seeds"].values():
+            assert len(v["rec_l1"]) == JAX_TEST_STEPS and np.isfinite(v["rec_l1"]).all()
+            # the port's windows were taken in f32, JAX's in f64
+            np.testing.assert_allclose((v["first"], v["last"], v["ratio"]),
+                                       windows8(np.asarray(v["rec_l1"])), rtol=1e-6)
+            assert v["passes"] == (v["ratio"] < 0.8)
+    assert runs["card"]["device"].startswith("NVIDIA") and runs["card"]["deterministic"]
+    assert runs["host_port"]["device"].startswith("cpu") and runs["host_jax"]["backend"] == "cpu"
+    assert runs["card"]["seeds"]["0"]["passes"]
+
+
+def jax_curve(seed: int):
+    """The JAX test's run (tests/test_training_dynamics.py, its body with
+    `PRNGKey(seed)`): G/rec_img at each of its 60 steps, on JAX's backend."""
+    import jax
+    import jax.numpy as jnp
+
+    from aglayout_tpu.config import Config
+    from aglayout_tpu.data.synthetic import synthetic_cooccurrence, synthetic_scene_batch
+    from aglayout_tpu.data.vocab import attribute_pos_weight
+    from aglayout_tpu.train.state import Models, create_train_state
+    from aglayout_tpu.train.step import make_train_step
+
+    cfg = Config(**JAX_TEST_CONFIG)
+    models = Models(cfg)
+    state = create_train_state(cfg, models, jax.random.PRNGKey(seed))
+    rng = np.random.RandomState(11)
+    corpus = [{k: jnp.asarray(v) for k, v in synthetic_scene_batch(
+        rng, cfg.batch_size, cfg.max_objects, cfg.image_size, cfg.num_classes).items()}
+        for _ in range(4)]
+    step = jax.jit(make_train_step(cfg, models, synthetic_cooccurrence(rng, cfg.num_classes),
+                                   attribute_pos_weight()), donate_argnums=0)
+    rec = []
+    for i in range(JAX_TEST_STEPS):
+        state, metrics = step(state, corpus[i % len(corpus)])
+        rec.append(float(metrics["G/rec_img"]))
+    return np.asarray(rec)
+
+
+def main(argv=None) -> dict:
+    """The dynamics test's ratio (last 8 over first 8 of 60 steps) by seed:
+
+        python tests/test_torch_port_training_dynamics.py --seeds 0 1 2 3 4 5 6 7
+            [--device cuda|cpu] [--jax] [--out FILE]
+
+    The port's run is `deterministic_curve` on `--device`; with `--jax` it
+    is the JAX test's own run (`jax_curve`) on JAX's backend
+    (`JAX_PLATFORMS=cpu` for the host), more than 20 minutes a seed there.
+    The file is rewritten after each seed: each seed's first and last
+    windows, ratio, whether it passes the bar of 0.8, and its seconds,
+    beside the device, the versions and the command."""
+    import argparse
+    import platform
+    import sys
+    import time
+
+    p = argparse.ArgumentParser(description=main.__doc__.split("\n\n")[0])
+    p.add_argument("--seeds", type=int, nargs="+", default=[0])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--jax", action="store_true", help="the JAX package's run instead")
+    p.add_argument("--out", default=None)
+    args = p.parse_args(argv)
+    if args.jax:
+        import jax
+
+        where = {"package": "jax", "backend": jax.default_backend(), "jax": jax.__version__}
+    else:
+        from aglayout_tpu_torch.bench import card
+
+        where = {"package": "torch", "device": card(args.device), "torch": torch.__version__,
+                 "deterministic": True, "threads": torch.get_num_threads()}
+    result = {"config": JAX_TEST_CONFIG, "steps": JAX_TEST_STEPS, "bar": 0.8, **where,
+              "host": platform.processor() or platform.machine(), "seeds": {},
+              "command": "python tests/test_torch_port_training_dynamics.py "
+                         + " ".join(sys.argv[1:] if argv is None else argv)}
+    for seed in args.seeds:
+        t0 = time.perf_counter()
+        rec = jax_curve(seed) if args.jax else deterministic_curve(args.device, seed)
+        first, last, ratio = windows8(rec)
+        result["seeds"][str(seed)] = {"first": first, "last": last, "ratio": ratio,
+                                      "passes": ratio < 0.8, "seconds": time.perf_counter() - t0,
+                                      "rec_l1": [float(x) for x in rec]}
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=2)
+        print(f"seed {seed}: {first:.4f} -> {last:.4f}, ratio {ratio:.4f}", flush=True)
+    return result
+
+
+if __name__ == "__main__":
+    main()
