@@ -5,7 +5,7 @@
         [--out FILE] [--device cuda|cpu]
 
 For each seed, a fresh `train_evidence` run of the 30 steps that its
-first window reads, logged every 10 (the config's seed overridden, its
+first window reads, logged every 10 (`train_evidence --seed`, its
 other arguments as given, the output in a temporary directory): the three
 logged reconstruction L1 values, and their mean, `train_evidence`'s first
 window. Prints one JSON object
@@ -51,10 +51,9 @@ def main(argv=None, **overrides) -> dict:
         with tempfile.TemporaryDirectory() as out:
             argv_run = ["--steps", str(STEPS), "--image_size", str(args.image_size),
                         "--batch_size", str(args.batch_size), "--log_every", str(LOG_EVERY),
-                        "--out", out, "--device", args.device]
+                        "--seed", str(seed), "--out", out, "--device", args.device]
             argv_run += ["--deterministic"] * args.deterministic + ["--tf32"] * args.tf32
-            train_evidence.run(train_evidence.parser().parse_args(argv_run), seed=seed,
-                               **overrides)
+            train_evidence.run(train_evidence.parser().parse_args(argv_run), **overrides)
             with open(os.path.join(out, "metrics.jsonl")) as f:
                 values = [json.loads(line)["G/rec_img"] for line in f]
         runs[str(seed)] = {"rec_l1": values, "first_window": train_evidence.windows(values)[0]}

@@ -2,13 +2,15 @@
 
     python -m aglayout_tpu_torch.tools.train_evidence [--steps 3000] [--image_size 64]
         [--batch_size 8] [--corpus_batches 32] [--log_every 10] [--deterministic]
-        [--tf32] [--segment_steps S --state_dir DIR]
+        [--tf32] [--seed 0] [--segment_steps S --state_dir DIR]
         [--out artifacts/torch_train_evidence] [--device cuda|cpu]
 
 Runs `--steps` train steps of `train/step.py` (the reference's config at
 `--image_size`, f32, Adam 2e-4) over `--corpus_batches` batches of
 `synthetic_scene_batch(RandomState(7), ...)`, whose images are renders of
-their layouts, so that the losses have something to learn; the corpus
+their layouts, so that the losses have something to learn, from a fresh
+state of `--seed` (the config's seed: the weights and the draws; the corpus
+is the same for every seed); the corpus
 lives on the device and the steps cycle through it (batch = global step
 modulo the corpus length). The steps multiply in f32 with TF32 off in
 cuBLAS and cuDNN, or with `--tf32` on. With `--deterministic` the steps run
@@ -83,6 +85,8 @@ def parser() -> argparse.ArgumentParser:
                    help="the steps under torch.use_deterministic_algorithms(True)")
     p.add_argument("--tf32", action="store_true",
                    help="TF32 in cuBLAS and cuDNN for the steps (default: f32 products)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="the config's seed: the fresh state's weights and the steps' draws")
     p.add_argument("--segment_steps", type=int, default=0,
                    help="stop after this many more steps and save the state to --state_dir")
     p.add_argument("--state_dir", default=None,
@@ -274,7 +278,7 @@ def _resumed_metrics(path: str, start: int, log_every: int) -> list:
 
 def run_args(args, overrides: dict) -> dict:
     """What fixes a run's trajectory: the arguments a resume must repeat,
-    and the config overrides (tests, seeds)."""
+    and the config overrides (tests; the seed is one)."""
     keys = ("steps", "image_size", "batch_size", "corpus_batches", "log_every", "deterministic",
             "tf32", "device")
     return dict({k: getattr(args, k) for k in keys}, **overrides)
@@ -324,6 +328,9 @@ def run(args, **overrides):
                          f"multiples of --log_every {args.log_every}")
     if args.segment_steps and not args.state_dir:
         raise ValueError("--segment_steps needs a --state_dir to save the state to")
+    if "seed" in overrides:
+        raise ValueError("the seed is --seed, not a config override")
+    overrides = dict(overrides, seed=args.seed)
     metrics_path, progress_path, summary_path = (os.path.join(args.out, name) for name in (
         "metrics.jsonl", "progress.json", "summary.json"))
     argd = run_args(args, overrides)

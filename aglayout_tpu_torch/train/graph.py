@@ -15,10 +15,11 @@ the eager step's contract, `(state, batch) -> (state, metrics)`, bound to
     example batch's keys, shapes and dtypes;
   * the state's `torch.Generator` is registered with the graph, so that
     replay N draws what eager step N draws;
-  * capture needs eager warm-up steps, which move the state (parameters,
-    Adam's moments and counts, BN running statistics, spectral-norm u and
-    v, the draws, the step); the whole state is snapshotted before them
-    and copied back into the same tensors after the capture. A fresh
+  * capture needs eager warm-up steps, on `batch` itself as an eager run
+    steps on its batches, which move the state (parameters, Adam's
+    moments and counts, BN running statistics, spectral-norm u and v, the
+    draws, the step); the whole state is snapshotted to the host before
+    them and copied back into the same tensors after the capture. A fresh
     state's Adams have no moments before their first step: they get zero
     moments and a count of 0, which is what torch's first eager step finds;
   * the metrics are static buffers that the next replay overwrites: read
@@ -91,25 +92,30 @@ class GraphedTrainStep:
                 raise RuntimeError(f"graphed train step: the {name} Adam is not capturable")
         self.state = state
         self.layout = _layout(batch)
-        self.static = {k: v.clone() for k, v in batch.items()}
         try:
-            self._capture(step)
+            self._capture(step, batch)
         except Exception as e:
             raise RuntimeError(f"graphed train step: the capture failed: {e}") from e
 
-    def _capture(self, step):
+    def _capture(self, step, batch):
         state = self.state
-        # the snapshot: the tensors a step writes, the draws, the step, and
-        # which parameters have Adam state yet
-        before = [t.clone() for t in _state_tensors(state)]
+        # the snapshot: the tensors a step writes (on the host), the draws,
+        # the step, and which parameters have Adam state yet
+        before = [t.to("cpu", copy=True) for t in _state_tensors(state)]
         had_state = {name: set(map(id, opt.state)) for name, opt in state.opt.items()}
         rng, step_no = state.rng.get_state(), state.step
         try:
-            # on the current stream, as an eager run's first steps: warmed up
-            # on a side stream, the graph parted at step 2 from an eager run
-            # in another process, though it equalled one in its own
+            # as an eager run's first steps: on the current stream, on the
+            # caller's batch itself (the static inputs are cloned after), the
+            # snapshot on the host. Warmed up on a side stream (64^2), or on a
+            # clone of the batch after a snapshot on the card (128^2, TF32),
+            # the graph parted at step 2 from an eager run in another
+            # process, though it equalled one in its own; an eager run with
+            # those clones on the card, or stepping on a clone, did not part
+            # (which library choice differs is not known)
             for _ in range(WARMUP):
-                step(state, self.static)
+                step(state, batch)
+            self.static = {k: v.clone() for k, v in batch.items()}
             for _, module in state.models.items():
                 module.zero_grad(set_to_none=True)
             self.graph = torch.cuda.CUDAGraph()

@@ -1258,8 +1258,10 @@ import torch
 from aglayout_tpu_torch.tools.train_evidence import parser, setup
 from aglayout_tpu_torch.train.graph import GraphedTrainStep
 from aglayout_tpu_torch.utils.device import deterministic, tf32
-with deterministic(), tf32(False):
-    _, _, corpus, state, step = setup(parser().parse_args(["--device", "cuda"]))
+size = int(sys.argv[3])
+with deterministic(), tf32(size == 128):
+    _, _, corpus, state, step = setup(parser().parse_args(["--image_size", str(size),
+                                                           "--device", "cuda"]))
     if sys.argv[2] == "graphed":
         step = GraphedTrainStep(step, state, corpus[0])
     rows = []
@@ -1270,12 +1272,15 @@ print(json.dumps(rows))
 """
 
 
-def test_graphed_step_in_a_fresh_process_equals_eager(cuda):
-    """`train_evidence`'s 64^2 set-up (32 corpus batches), deterministic,
-    TF32 off, 20 steps eager in one new process and graphed in another:
-    every metric at every step equal. Warmed up on a side stream, the
-    graph parted from the other process's eager run at step 2, though it
-    equalled an eager run in its own process."""
+@pytest.mark.parametrize("size", [64, 128])
+def test_graphed_step_in_a_fresh_process_equals_eager(cuda, size):
+    """`train_evidence`'s set-up (32 corpus batches), deterministic, at 64^2
+    with TF32 off and at 128^2 with it on (the modes the evidence runs),
+    20 steps eager in one new process and graphed in another: every metric
+    at every step equal. Warmed up on a side stream (64^2), or on a clone
+    of the batch after a snapshot on the card (128^2), the graph parted
+    from the other process's eager run at step 2, though it equalled an
+    eager run in its own process."""
     import json
     import os
     import subprocess
@@ -1283,8 +1288,9 @@ def test_graphed_step_in_a_fresh_process_equals_eager(cuda):
 
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     rows = {kind: json.loads(subprocess.run(
-        [sys.executable, "-c", _FRESH_RUN, repo, kind], capture_output=True, text=True,
-        check=True, timeout=600).stdout.splitlines()[-1]) for kind in ("eager", "graphed")}
+        [sys.executable, "-c", _FRESH_RUN, repo, kind, str(size)], capture_output=True,
+        text=True, check=True, timeout=600).stdout.splitlines()[-1])
+        for kind in ("eager", "graphed")}
     assert rows["eager"] == rows["graphed"]
 
 

@@ -449,12 +449,14 @@ def test_train_evidence_finished_run_changes_nothing(tmp_path):
 
 @pytest.mark.parametrize("fault, match", [
     ("other_args", "resume with its arguments"),
+    ("other_seed", "resume with its arguments"),
     ("no_progress", "do not cover steps 0 to 4"),
 ])
 def test_train_evidence_refuses_a_resume_it_cannot_account_for(tmp_path, fault, match):
-    """A resume with another argument than its saved segments' (here --tf32),
-    or one whose progress.json does not cover the steps up to the saved
-    state, raises before it trains; each segment records its arguments."""
+    """A resume with another argument than its saved segments' (here --tf32,
+    or --seed 1 into a state saved under the default seed 0), or one whose
+    progress.json does not cover the steps up to the saved state, raises
+    before it trains; each segment records its arguments and its seed."""
     from aglayout_tpu_torch.bench import TRAIN_SMALL
 
     _segment_run(tmp_path, "run", 64, "--segment_steps", "4")
@@ -462,14 +464,39 @@ def test_train_evidence_refuses_a_resume_it_cannot_account_for(tmp_path, fault, 
     assert progress["segments"][0]["run_args"] == {
         "steps": 8, "image_size": 64, "batch_size": 3, "corpus_batches": 3, "log_every": 2,
         "deterministic": False, "tf32": False, "device": "cpu", "object_size": 32,
-        **{k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"}}
+        **{k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"}, "seed": 0}
     assert progress["segments"][0]["graphed"] is False  # the CPU steps eagerly
-    extra = ["--tf32"] if fault == "other_args" else []
+    extra = {"other_args": ["--tf32"], "other_seed": ["--seed", "1"]}.get(fault, [])
     if fault == "no_progress":
         os.remove(tmp_path / "run" / "progress.json")
     with pytest.raises(ValueError, match=match):
         _segment_run(tmp_path, "run", 64, "--segment_steps", "4", *extra)
     assert len((tmp_path / "run" / "metrics.jsonl").read_text().splitlines()) == 2
+
+
+def test_train_evidence_seed(tmp_path):
+    """`--seed S` is the config's seed: `--seed 0` writes what no flag
+    writes (metrics.jsonl byte for byte, the same segment arguments), and
+    `--seed 1` another first log; each segment records its seed. A seed
+    given as a config override as well is refused."""
+    from aglayout_tpu_torch.bench import TRAIN_SMALL
+    from aglayout_tpu_torch.tools import train_evidence
+
+    small = {k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"}
+    runs, logs = {}, {}
+    for name, extra in (("none", []), ("zero", ["--seed", "0"]), ("one", ["--seed", "1"])):
+        argv = _evidence_argv(tmp_path / name) + extra
+        runs[name] = train_evidence.run(train_evidence.parser().parse_args(argv), **small)
+        logs[name] = (tmp_path / name / "metrics.jsonl").read_text()
+    assert logs["zero"] == logs["none"]
+    assert [r["segments"][0]["run_args"]["seed"] for r in runs.values()] == [0, 0, 1]
+    assert runs["zero"]["segments"][0]["run_args"] == runs["none"]["segments"][0]["run_args"]
+    first = {name: json.loads(log.splitlines()[0]) for name, log in logs.items()}
+    assert first["one"]["step"] == first["none"]["step"] == 2
+    assert first["one"]["G/rec_img"] != first["none"]["G/rec_img"]
+    with pytest.raises(ValueError, match="the seed is --seed"):
+        train_evidence.run(train_evidence.parser().parse_args(_evidence_argv(tmp_path / "x")),
+                           seed=1, **small)
 
 
 def test_train_evidence_reruns_a_segment_cut_before_its_state(tmp_path, monkeypatch):

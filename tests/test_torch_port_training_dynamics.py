@@ -16,7 +16,13 @@ tests/test_training_dynamics.py.
     tail; 6,000 steps in two segments of 3,000, `--image_size 128 --steps
     6000 --deterministic --tf32 --segment_steps 3000`), held to JAX's
     128^2 test's bar, to JAX's own curve at the same length, and to the
-    kernel check of its samples' forward on the trained state.
+    kernel check of its samples' forward on the trained state;
+  * the committed 128^2 card runs at JAX's 12,000 steps by seed:
+    artifacts/torch_train_evidence_128_12000/seeds/ (`train_evidence
+    --image_size 128 --steps 12000 --deterministic --tf32 --seed S`), each
+    held to its own files and kernel check, and its verdict.json to the
+    rule of `tools/evidence_seeds` (the median of four seeds' last windows
+    against JAX's plus 0.05).
 
 The file imports no JAX, so it runs where only PyTorch is installed:
 `python -m pytest --noconftest tests/test_torch_port_training_dynamics.py`.
@@ -166,6 +172,94 @@ def test_committed_training_evidence_128():
     assert k["limit"] == 1e-4 and k["max_abs_err_over_max"] <= k["limit"], k
     path = PATH_KERNELS[128]
     assert {name: k["launches"].get(name) for name in path} == dict.fromkeys(path, 3), k
+
+
+def test_committed_128_evidence_seeds():
+    """artifacts/torch_train_evidence_128_12000/seeds/: the 128^2 evidence at
+    JAX's 12,000 steps by seed (`tools/evidence_seeds`). The seeds run come
+    in the rule's order, 0 first. Each has every log step to 12,000, the
+    summary's windows as `train_evidence.windows` recomputes them, the
+    arguments of the others but for the seed (deterministic, TF32, every
+    segment graphed), an NVIDIA card, and a kernel check within 1e-4 with
+    K1-K5 three launches each; verdict.json's `L_S`, `m` and verdict are
+    the rule's on the recomputed windows (`pending` until all four ran)."""
+    from aglayout_tpu_torch.tools import evidence_seeds
+    from aglayout_tpu_torch.tools.train_evidence import PATH_KERNELS, windows
+
+    d = evidence_seeds.DIR
+    seeds = evidence_seeds.seeds_present(d)
+    assert seeds[:1] == [0], seeds
+    with open(os.path.join(JAX_EVIDENCE_128, "summary.json")) as f:
+        assert round(json.load(f)["rec_l1_last_window"], 4) == evidence_seeds.JAX_LAST
+    assert evidence_seeds.BOUND == round(evidence_seeds.JAX_LAST + 0.05, 4)
+    last, args = [], []
+    for s in seeds:
+        run = os.path.join(d, f"seed_{s}")
+        with open(os.path.join(run, "summary.json")) as f:
+            summary = json.load(f)
+        rows = evidence_seeds.read_metrics(run)
+        assert [r["step"] for r in rows] == list(range(10, 12001, 10))
+        first, l_s, reduction = windows([r["G/rec_img"] for r in rows])
+        assert (summary["rec_l1_first_window"], summary["rec_l1_last_window"],
+                summary["rec_l1_reduction"]) == (first, l_s, reduction)
+        last.append(l_s)
+        assert summary["steps"] == 12000 and summary["image_size"] == 128
+        assert summary["deterministic"] and summary["tf32"]
+        assert summary["card"].startswith("NVIDIA")
+        segments = summary["segments"]
+        assert all(sg["graphed"] for sg in segments) and segments[-1]["to_step"] == 12000
+        assert all(sg["run_args"] == segments[0]["run_args"] for sg in segments)
+        assert segments[0]["run_args"]["seed"] == s
+        args.append(dict(segments[0]["run_args"], seed=None))
+        k = summary["kernel_check"]
+        assert k["limit"] == 1e-4 and k["max_abs_err_over_max"] <= k["limit"], k
+        path = PATH_KERNELS[128]
+        assert {name: k["launches"].get(name) for name in path} == dict.fromkeys(path, 3), k
+        for art in ("loss_curves.png", "samples.png", "progress.json"):
+            assert os.path.getsize(os.path.join(run, art)) > 0
+    assert all(a == args[0] for a in args), args
+    assert args[0]["deterministic"] and args[0]["tf32"] and args[0]["steps"] == 12000
+    with open(os.path.join(d, "verdict.json")) as f:
+        verdict = json.load(f)
+    assert verdict["seeds_run"] == seeds
+    assert [verdict["seeds"][str(s)]["L_S"] for s in seeds] == last
+    want = (None, "pending") if len(seeds) < 4 else (
+        float(np.median(last)), "draw" if np.median(last) <= 0.3948 else "fault")
+    assert (verdict["m"], verdict["verdict"]) == want
+    assert verdict["cards"] and all(c.startswith("NVIDIA") for c in verdict["cards"])
+
+
+@pytest.mark.parametrize("last, want", [
+    ((0.33, 0.41, 0.39, 0.36), (0.375, "draw")),
+    ((0.40, 0.41, 0.39, 0.36), (0.395, "fault")),
+    ((0.3948, 0.3948, 0.30, 0.50), (0.3948, "draw")),
+    ((0.30, 0.50), (None, "pending")),
+])
+def test_evidence_seeds_rule(tmp_path, last, want):
+    """`tools/evidence_seeds` on runs whose every log is `L_S`: the median
+    of four (the mean of the middle two) against 0.3948, inclusive, and
+    `pending` with fewer; verdict.json written; a seed without the seeds
+    before it refused."""
+    from aglayout_tpu_torch.tools import evidence_seeds
+
+    for s, value in enumerate(last):
+        run = tmp_path / f"seed_{s}"
+        run.mkdir()
+        rows = [{"G/rec_img": value, "G/loss": 1.0, "step": i} for i in range(10, 12001, 10)]
+        (run / "metrics.jsonl").write_text("".join(json.dumps(r) + "\n" for r in rows))
+        (run / "summary.json").write_text(json.dumps({"card": "NVIDIA test card, 1 W",
+                                                      "steps_per_sec": 1.0}))
+    out = evidence_seeds.main(["--dir", str(tmp_path)])
+    m, verdict = want
+    assert out["verdict"] == verdict and out["seeds_run"] == list(range(len(last)))
+    assert out["m"] == (None if m is None else pytest.approx(m, abs=1e-12))
+    assert [out["seeds"][str(s)]["L_S"] for s in range(len(last))] == pytest.approx(last)
+    assert out["seeds"]["0"]["windows"]["G/loss"] == {"1000": 1.0, "3000": 1.0, "6000": 1.0,
+                                                      "12000": 1.0}
+    assert json.loads((tmp_path / "verdict.json").read_text()) == out
+    os.rename(tmp_path / "seed_0", tmp_path / "gone")
+    with pytest.raises(ValueError, match="in the order"):
+        evidence_seeds.study(str(tmp_path))
 
 
 def test_committed_dynamics_seed_study():
