@@ -2564,17 +2564,25 @@ def state_digest(path) -> str:
     return h.hexdigest()
 
 
-def evidence_children(root) -> dict:
+# the resume check's `train_evidence` arguments by size: 64^2 with TF32 off
+# (phase 16 (e)); 128^2 with TF32 on, logged every step, as the 128^2
+# evidence runs (tests/test_torch_port_gpu.py)
+RESUME_ARGS = {64: ("--log_every", "10"),
+               128: ("--log_every", "1", "--image_size", "128", "--tf32")}
+
+
+def evidence_children(root, size: int = 64) -> dict:
     """Phase 16 (e)'s three `train_evidence` child processes, started
     ahead (`ahead`): 20 steps in one ("one"), 10 + 10 through
     `--segment_steps 10` in two ("first", "second", both writing to
-    "two"), each saving its state to `--state_dir`."""
+    "two"), each saving its state to `--state_dir`; deterministic, graphed,
+    with `RESUME_ARGS[size]`."""
     body = ("from aglayout_tpu_torch.tools import train_evidence as t; "
             "t.run(t.parser().parse_args(sys.argv[1:])); "
             "print(f'[child] ran {time.time() - t1:.1f} s', flush=True)")
 
     def child(name, *extra):
-        return ahead(body, "--steps", "20", "--log_every", "10", "--deterministic", "--out",
+        return ahead(body, "--steps", "20", *RESUME_ARGS[size], "--deterministic", "--out",
                      str(root / name), "--state_dir", str(root / f"{name}_state"), "--device",
                      "cuda", *extra)
 
@@ -2582,13 +2590,13 @@ def evidence_children(root) -> dict:
             "second": child("two", "--segment_steps", "10")}
 
 
-def evidence_start(root) -> tuple:
+def evidence_start(root, size: int = 64) -> tuple:
     """Phase 16 (e), started with the phase: `evidence_children`' unsplit
     run and first segment at once, the second segment once the first has
     exited, through a thread of this process that waits for them. Returns
     (the children, the thread, its record: each child's end and marks, and
     the error that stopped it)."""
-    kids, record = evidence_children(root), {"walls": {}, "error": None}
+    kids, record = evidence_children(root, size), {"walls": {}, "error": None}
     t_start = time.perf_counter()
 
     def wait(name):
@@ -2618,8 +2626,12 @@ def evidence_start(root) -> tuple:
     return kids, thread, record
 
 
-def evidence_resume(started: tuple, root, smi: str) -> None:
-    """Phase 16 (e)'s checks, once `evidence_start`'s children have ended."""
+def evidence_resume(started: tuple, root, smi: str, size: int = 64) -> None:
+    """Phase 16 (e)'s checks, once `evidence_start`'s children have ended:
+    `metrics.jsonl` byte-equal (else the first logged step at which the
+    runs part is raised), the step-20 states' `state_digest` equal, the
+    segments (0, 20) and (0, 10), (10, 20), and each run's kernel check
+    within 1e-4 with every kernel of the size's path three launches."""
     _, thread, record = started
     thread.join(timeout=900)
     if thread.is_alive():
@@ -2638,7 +2650,8 @@ def evidence_resume(started: tuple, root, smi: str) -> None:
     segments = [[(s["from_step"], s["to_step"]) for s in x["segments"]] for x in summaries]
     checks = [x["kernel_check"] for x in summaries]
     lines = metrics[0].count(b"\n")
-    log(f"[tools] (e) train_evidence 64^2 B=8 f32 (TF32 off) deterministic, 20 steps in one "
+    log(f"[tools] (e) train_evidence {size}^2 B=8 f32 (TF32 {'on' if size == 128 else 'off'}) "
+        f"deterministic, 20 steps in one "
         f"process against 10 + 10 in two (segments {segments}): metrics.jsonl equal "
         f"{metrics[0] == metrics[1]} ({lines} lines), step-20 state "
         f"SHA-256 {digests[0][:16]}... against {digests[1][:16]}...; the kernel check (the "
@@ -2646,9 +2659,14 @@ def evidence_resume(started: tuple, root, smi: str) -> None:
         f"{[c['max_abs_err_over_max'] for c in checks]}, launches {checks[0]['launches']} | {smi}")
     if metrics[0] != metrics[1] or digests[0] != digests[1] or segments != [[(0, 20)],
                                                                              [(0, 10), (10, 20)]]:
-        raise AssertionError("tools (e): the resumed run differs from the unsplit one")
+        rows = [m.splitlines() for m in metrics]
+        parted = next((json.loads(a)["step"] for a, b in zip(*rows) if a != b), None)
+        raise AssertionError(f"tools (e): the resumed run differs from the unsplit one "
+                             f"(first logged step that differs: {parted}; states equal "
+                             f"{digests[0] == digests[1]}; segments {segments})")
+    path = PATH64 if size == 64 else PATH128
     for c in checks:
-        if c["launches"] != {k: 3 * n for k, n in PATH64.items()} \
+        if c["launches"] != {k: 3 * n for k, n in path.items()} \
                 or not c["max_abs_err_over_max"] <= c["limit"] or c["limit"] != 1e-4:
             raise AssertionError(f"tools (e): kernel check {c}")
 

@@ -1294,6 +1294,24 @@ def test_graphed_step_in_a_fresh_process_equals_eager(cuda, size):
     assert rows["eager"] == rows["graphed"]
 
 
+def test_train_evidence_resumes_at_128_tf32_bit_for_bit(cuda, tmp_path):
+    """`chip_smoke.py` phase 16 (e)'s resume check at the 128^2 evidence's
+    mode (deterministic, TF32 on, graphed; logged every step): 10 + 10
+    steps of `train_evidence --segment_steps 10` in two processes against
+    20 in one. `metrics.jsonl` byte-equal, the step-20 states' digests
+    equal, the segments (0, 10), (10, 20), each run's kernel check within
+    1e-4 with K1-K5 three launches each. A resumed segment is a fresh
+    process, where a graph can part from an eager run (`graph.py`); the
+    states (about 940 MiB each) stay under `tmp_path`."""
+    from chip_smoke import evidence_resume, evidence_start, phase_device, reap
+
+    started = evidence_start(tmp_path, 128)
+    try:
+        evidence_resume(started, tmp_path, phase_device(), 128)
+    finally:
+        reap(*started[0].values())
+
+
 def test_graphed_step_resumes_from_a_checkpoint_bit_for_bit(cuda, tmp_path):
     """64^2, deterministic, TF32 off: 10 graphed steps, the state saved
     after the 5th under the graph, against a fresh state restored from that

@@ -176,19 +176,19 @@ def test_committed_training_evidence_128():
 
 def test_committed_128_evidence_seeds():
     """artifacts/torch_train_evidence_128_12000/seeds/: the 128^2 evidence at
-    JAX's 12,000 steps by seed (`tools/evidence_seeds`). The seeds run come
-    in the rule's order, 0 first. Each has every log step to 12,000, the
+    JAX's 12,000 steps by seed (`tools/evidence_seeds`). All four of the
+    rule's seeds ran, 0 to 3. Each has every log step to 12,000, the
     summary's windows as `train_evidence.windows` recomputes them, the
     arguments of the others but for the seed (deterministic, TF32, every
     segment graphed), an NVIDIA card, and a kernel check within 1e-4 with
-    K1-K5 three launches each; verdict.json's `L_S`, `m` and verdict are
-    the rule's on the recomputed windows (`pending` until all four ran)."""
+    K1-K5 three launches each; verdict.json's `L_S`, `m` and verdict
+    (`draw` or `fault`) are the rule's on the recomputed windows."""
     from aglayout_tpu_torch.tools import evidence_seeds
     from aglayout_tpu_torch.tools.train_evidence import PATH_KERNELS, windows
 
     d = evidence_seeds.DIR
     seeds = evidence_seeds.seeds_present(d)
-    assert seeds[:1] == [0], seeds
+    assert seeds == [0, 1, 2, 3] == list(evidence_seeds.SEEDS), seeds
     with open(os.path.join(JAX_EVIDENCE_128, "summary.json")) as f:
         assert round(json.load(f)["rec_l1_last_window"], 4) == evidence_seeds.JAX_LAST
     assert evidence_seeds.BOUND == round(evidence_seeds.JAX_LAST + 0.05, 4)
@@ -223,9 +223,8 @@ def test_committed_128_evidence_seeds():
         verdict = json.load(f)
     assert verdict["seeds_run"] == seeds
     assert [verdict["seeds"][str(s)]["L_S"] for s in seeds] == last
-    want = (None, "pending") if len(seeds) < 4 else (
-        float(np.median(last)), "draw" if np.median(last) <= 0.3948 else "fault")
-    assert (verdict["m"], verdict["verdict"]) == want
+    m = float(np.median(last))
+    assert (verdict["m"], verdict["verdict"]) == (m, "draw" if m <= 0.3948 else "fault")
     assert verdict["cards"] and all(c.startswith("NVIDIA") for c in verdict["cards"])
 
 
