@@ -23,19 +23,35 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from aglayout_tpu_torch.config import Config
 from aglayout_tpu_torch.models.generator import init_weights
 from aglayout_tpu_torch.models.sn import SNConv2d, SNLinear
 
 
+class _AvgPool2(torch.autograd.Function):
+    """F.avg_pool2d(x, 2) forward; its gradient as an expand, a quarter of
+    the output's gradient on each of the four pixels: avg_pool2d's own
+    backward bit for bit, where that kernel was the train step's heaviest.
+    (A reshape and a mean sums the four terms in another order and moves a
+    value by up to two units in the last place of their magnitude.)"""
+
+    @staticmethod
+    def forward(ctx, x):
+        return F.avg_pool2d(x, 2)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, c, h, w = g.shape
+        return (g * 0.25)[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(
+            n, c, 2 * h, 2 * w)
+
+
 def avg_pool2(x):
-    """2x2 average pool, stride 2, of (N, C, H, W) with H and W even, as a
-    reshape and a mean: F.avg_pool2d(x, 2) up to the order of the four
-    terms' sum, and a backward that is an expand, where avg_pool2d's was the
-    train step's heaviest kernel."""
-    n, c, h, w = x.shape
-    return x.reshape(n, c, h // 2, 2, w // 2, 2).mean((3, 5))
+    """2x2 average pool, stride 2, of (N, C, H, W) with H and W even:
+    F.avg_pool2d(x, 2) bit for bit, forward and backward."""
+    return _AvgPool2.apply(x)
 
 
 class OptimizedBlock(nn.Module):

@@ -1,10 +1,11 @@
 """Whether two training runs from one seed repeat themselves, bit for bit.
 
     python -m aglayout_tpu_torch.tools.step_determinism [--mode default|deterministic]
-        [--steps 50] [--check_at 10 50] [--image_size 64] [--tf32]
+        [--steps 50] [--check_at 10 50] [--image_size 64] [--tf32] [--seed 0]
         [--batch_size 8] [--corpus_batches 32] [--out FILE] [--device cuda|cpu]
 
-Two runs of `--steps` train steps, each from a fresh state of the same seed,
+Two runs of `--steps` train steps, each from a fresh state of the same seed
+(`--seed`, the config's, as `train_evidence --seed`),
 at `train_evidence`'s set-up (the reference's config at `--image_size`, f32
 with TF32 off, or with `--tf32` on, the scene corpus), in torch's default mode or (`--mode
 deterministic`) under `torch.use_deterministic_algorithms(True,
@@ -19,8 +20,9 @@ deterministic CUDA form (warn_only lets them run, so the runs complete).
 
 Prints one JSON object (and writes it to `--out`): per run its ms/step and
 fingerprints, whether the runs are bit-equal at each checked step, the
-largest param difference there, the warning ops, the card and the
-versions. Run the modes as separate processes, in turns, to time them.
+largest param difference there and the first `NAMES` of the tensors that
+differ (`differ`: nets' `state_dict` entries, Adam state, the draws'
+generator, metrics), the warning ops, the card and the versions. Run the modes as separate processes, in turns, to time them.
 
 On the card the second run takes the step captured as one CUDA graph
 (`train/graph.py`), so the two runs hold the graphed step against the
@@ -40,6 +42,7 @@ import time
 import warnings
 
 WARMUP = 5  # steps left out of a run's ms/step
+NAMES = 20  # the differing tensors named at a checked step
 
 
 def parser() -> argparse.ArgumentParser:
@@ -51,6 +54,8 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--batch_size", type=int, default=8)
     p.add_argument("--corpus_batches", type=int, default=32)
     p.add_argument("--tf32", action="store_true", help="TF32 in cuBLAS and cuDNN for the steps")
+    p.add_argument("--seed", type=int, default=0,
+                   help="the config's seed: the fresh states' weights and the steps' draws")
     p.add_argument("--out", default=None)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cpu: the plain paths on the host, for tests")
@@ -73,6 +78,21 @@ def fingerprint(state, metrics) -> str:
     return h.hexdigest()
 
 
+def digests(state, metrics) -> dict:
+    """{name: SHA-256} of each tensor that `fingerprint` hashes."""
+    def sha(t):
+        return hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
+
+    out = {}
+    for name, module in state.models.items():
+        out.update({f"{name}.{k}": sha(t) for k, t in module.state_dict().items()})
+        for i, s in enumerate(state.opt[name].state.values()):
+            out.update({f"opt.{name}.{i}.{k}": sha(s[k]) for k in ("exp_avg", "exp_avg_sq", "step")})
+    out["rng"] = sha(state.rng.get_state())
+    out.update({f"metric.{k}": sha(metrics[k]) for k in sorted(k for k in metrics if k != "images")})
+    return out
+
+
 def one_run(args, overrides, graphed: bool = False) -> dict:
     """One run of `args.steps` steps from a fresh state, eager or
     `graphed`: its ms/step, its fingerprints and params (on the host) at
@@ -85,7 +105,7 @@ def one_run(args, overrides, graphed: bool = False) -> dict:
 
     device, cfg, corpus, state, step = setup(args, "step_determinism", **overrides)
     cuda = device.type == "cuda"
-    times, prints, params, ops = [], {}, {}, set()
+    times, prints, params, ops, tensors = [], {}, {}, set(), {}
     with tf32(args.tf32), warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         if graphed:
@@ -104,6 +124,7 @@ def one_run(args, overrides, graphed: bool = False) -> dict:
                 times.append(1e3 * (time.perf_counter() - t0))
             if i + 1 in args.check_at:
                 prints[i + 1] = fingerprint(state, metrics)
+                tensors[i + 1] = digests(state, metrics)
                 params[i + 1] = [p.detach().cpu().clone() for _, m in state.models.items()
                                  for p in m.parameters()]
     if cuda:
@@ -115,7 +136,7 @@ def one_run(args, overrides, graphed: bool = False) -> dict:
             ops.add(m.group(1))
     timed = times[min(WARMUP, len(times) - 1):]
     return {"ms_per_step": sum(timed) / len(timed), "fingerprints": prints,
-            "params": params, "nondeterministic_ops": sorted(ops)}
+            "params": params, "digests": tensors, "nondeterministic_ops": sorted(ops)}
 
 
 def measure(args, **overrides) -> dict:
@@ -125,6 +146,9 @@ def measure(args, **overrides) -> dict:
     from aglayout_tpu_torch.bench import card
     from aglayout_tpu_torch.utils.device import deterministic
 
+    if "seed" in overrides:
+        raise ValueError("the seed is --seed, not a config override")
+    overrides = dict(overrides, seed=args.seed)
     with (deterministic(warn_only=True) if args.mode == "deterministic"
           else contextlib.nullcontext()):
         runs = [one_run(args, overrides, graphed) for graphed in (False, args.device == "cuda")]
@@ -135,6 +159,7 @@ def measure(args, **overrides) -> dict:
         "image_size": args.image_size,
         "batch_size": args.batch_size,
         "tf32": args.tf32,
+        "seed": args.seed,
         "runs": ["eager", "graphed" if args.device == "cuda" else "eager"],
         "cublas_workspace_config": os.environ.get("CUBLAS_WORKSPACE_CONFIG"),
         "ms_per_step": [r["ms_per_step"] for r in runs],
@@ -144,6 +169,8 @@ def measure(args, **overrides) -> dict:
         "max_param_diff": {str(k): max((p - q).abs().max().item()
                                        for p, q in zip(a["params"][k], b["params"][k]))
                            for k in args.check_at},
+        "differ": {str(k): [n for n, h in a["digests"][k].items()
+                            if b["digests"][k][n] != h][:NAMES] for k in args.check_at},
         "nondeterministic_ops": sorted(set(a["nondeterministic_ops"])
                                        | set(b["nondeterministic_ops"])),
         "card": card(args.device),

@@ -270,17 +270,37 @@ def test_build_discriminators_follows_the_config(image_size, blocks):
     assert abs(u.norm().item() - 1) < 1e-6
 
 
+def test_pool_shapes_are_a_steps_pools():
+    """`first_window_rule.pool_shapes` on the host at small widths (B=8,
+    O=3, d 8): the image D's pools on the D phase's 4 B images and the G
+    phase's 3 B, from its first block's at 64^2 down to 4^2, and the crops'
+    on the attribute D's B O real crops and the object D's 4 B O and 3 B O,
+    32^2 down to 4^2 (3 B images and B O crops share their trunk's shapes),
+    each once; the Ds' pool is itself again afterwards."""
+    from aglayout_tpu_torch.bench import TRAIN_SMALL
+    from aglayout_tpu_torch.models import discriminator
+    from aglayout_tpu_torch.tools.first_window_rule import pool_shapes
+
+    pool = discriminator.avg_pool2
+    shapes = pool_shapes("cpu", **{k: v for k, v in TRAIN_SMALL.items() if k != "batch_size"})
+    assert discriminator.avg_pool2 is pool
+    trunk = [(16, 32), (32, 16), (64, 8), (128, 4)]
+    assert len(set(shapes)) == len(shapes)
+    assert set(shapes) == ({(n, c, s, s) for n in (24, 32) for c, s in [(8, 64), (3, 64)] + trunk}
+                           | {(n, c, s, s) for n in (24, 72, 96) for c, s in trunk})
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_avg_pool2_is_avg_pool2d(dtype):
-    """The Ds' 2x2 pool (a reshape and a mean) against F.avg_pool2d: the
-    same values up to the order of the four terms' sum, and the same
+    """The Ds' 2x2 pool (F.avg_pool2d's forward, its gradient an expand)
+    against F.avg_pool2d: the same values, bit for bit, and the same
     gradient, a quarter of the output's gradient on each of its four
     pixels."""
     g = torch.Generator().manual_seed(9)
     x = torch.randn(3, 5, 16, 8, generator=g).to(dtype).requires_grad_()
     y = torch.randn(3, 5, 8, 4, generator=g).to(dtype)
     got, want = avg_pool2(x), torch.nn.functional.avg_pool2d(x, 2)
-    torch.testing.assert_close(got, want, rtol=0, atol=2e-7 if dtype == torch.float32 else 0)
+    assert torch.equal(got, want)
     (gx,) = torch.autograd.grad((got * y).sum(), x)
     (wx,) = torch.autograd.grad((want * y).sum(), x)
     assert torch.equal(gx, wx)

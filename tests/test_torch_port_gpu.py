@@ -1376,6 +1376,47 @@ def test_graphed_step_refuses_what_it_cannot_replay(cuda):
         GraphedTrainStep(step, plain, batch)
 
 
+def test_capturable_adam_is_optax_adam(cuda):
+    """The card's Adam (`train/state.adam`: capturable), eager and replayed
+    from one CUDA graph, after 100 steps of `first_window_rule.adam_case()`
+    (gradients over seven decades): within 1e-2 lr of `adam_reference`
+    (optax's f32 Adam, itself held to `optax.adam` on the host by
+    `tests/test_torch_port_graph.py`), and no farther than twice the plain
+    Adam on the same inputs; the graph equal to the eager steps."""
+    from aglayout_tpu_torch.tools.first_window_rule import (
+        ADAM_BOUND,
+        ADAM_RATIO,
+        adam_case,
+        adam_distances,
+        torch_adam,
+    )
+
+    d = adam_distances(cuda)
+    assert set(d) == {"plain", "capturable", "capturable_graphed"}
+    for kind in ("capturable", "capturable_graphed"):
+        assert d[kind] <= ADAM_BOUND and d[kind] <= ADAM_RATIO * d["plain"], d
+    p0, grads = adam_case()
+    assert np.array_equal(torch_adam(p0, grads, cuda, True, True),
+                          torch_adam(p0, grads, cuda, True, False))
+
+
+def test_avg_pool2_is_avg_pool2d_at_the_ds_shapes(cuda):
+    """`test_torch_port_discriminator.py::test_avg_pool2_is_avg_pool2d` on
+    the card, at every shape one 64^2 train step pools (B=8, O=10: among
+    them the image D's first block on the D phase's 32 images and the
+    object D's second on its 320 crops): the forward within 2e-7 of
+    `F.avg_pool2d` on standard-normal f32 inputs (the rule's check; equal,
+    since the pool is avg_pool2d's forward), the gradients equal."""
+    from aglayout_tpu_torch.tools.first_window_rule import POOL_ATOL, pool_errors, pool_shapes
+
+    shapes = pool_shapes(cuda)
+    assert {(32, 3, 64, 64), (32, 64, 64, 64), (320, 128, 32, 32)} <= set(shapes), shapes
+    for shape in shapes:
+        e = pool_errors(shape, cuda)
+        assert e["forward_max_abs"] <= POOL_ATOL and e["backward_equal"], e
+        assert e["forward_unequal"] == 0, e
+
+
 def _small_train(cfg, device):
     """(matrix, a fresh state, its eager step) at `cfg` on `device`."""
     from aglayout_tpu_torch.bench import train_inputs

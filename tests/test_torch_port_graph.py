@@ -8,6 +8,9 @@ and refuses, on the host:
   * Adam is capturable on the card only (torch takes no capturable Adam on
     the CPU), and a checkpoint restores exactly into either kind, whichever
     kind saved it, each keeping its counts where it keeps them;
+  * `tools/first_window_rule.adam_reference`, the f32 Adam that the card's
+    capturable Adam is held to (`tests/test_torch_port_gpu.py`), is
+    optax's, and the plain Adam is within the rule's bound of it;
   * the graphed step raises on the CPU, on a sharded step and inside one,
     and when given draws or marks: no path runs the eager step in its
     place.
@@ -16,6 +19,10 @@ The capture itself, and the graphed step against the eager one bit for
 bit, run on the card (`tests/test_torch_port_gpu.py`).
 """
 
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
 import pytest
 import torch
 
@@ -30,6 +37,12 @@ from aglayout_tpu_torch.ops.image import (
     imagenet_preprocess,
 )
 from aglayout_tpu_torch.parallel import Group, make_sharded_train_step, mesh
+from aglayout_tpu_torch.tools.first_window_rule import (
+    ADAM_BOUND,
+    adam_case,
+    adam_distances,
+    adam_reference,
+)
 from aglayout_tpu_torch.train.compare import state_mismatches, step_draws
 from aglayout_tpu_torch.train.graph import GraphedTrainStep
 from aglayout_tpu_torch.train.losses import bce_logits
@@ -178,6 +191,41 @@ def test_capturable_checkpoint_restores_exactly_into_a_plain_adam(stepped, tmp_p
     for opt in restored.opt.values():
         assert not any(g["capturable"] for g in opt.param_groups)
         assert all(s["step"].device.type == "cpu" for s in opt.state.values())
+
+
+# ---- the Adam the card's is held to
+
+
+def test_adam_reference_is_optax_adam():
+    """`adam_reference` against optax's Adam as the JAX package builds it
+    (aglayout_tpu/train/state.py: `optax.adam(lr, b1, b2, eps=1e-8)`),
+    its 100 steps of `adam_case()` (gradients over seven decades) in one
+    jitted scan: every parameter within 1e-3 lr (measured 1.5e-4 lr, one
+    f32 rounding of the parameters; the bias corrections' powers round
+    apart in a few steps), a tenth of the bound the card's Adam is held to."""
+    p0, grads = adam_case()
+    tx = optax.adam(CFG.learning_rate, b1=CFG.beta1, b2=CFG.beta2, eps=1e-8)
+
+    def body(carry, g):
+        p, s = carry
+        u, s = tx.update(g, s, p)
+        return (optax.apply_updates(p, u), s), None
+
+    p = jnp.asarray(p0)
+    (want, _), _ = jax.jit(lambda p, gs: jax.lax.scan(body, (p, tx.init(p)), gs))(
+        p, jnp.asarray(grads))
+    got = adam_reference(p0, grads, CFG.learning_rate, CFG.beta1, CFG.beta2, 1e-8)
+    assert got.dtype == np.float32
+    assert np.abs(got - np.asarray(want)).max() <= 1e-3 * CFG.learning_rate
+    assert np.abs(got - p0).max() > 10 * CFG.learning_rate  # it moved
+
+
+def test_plain_adam_is_within_the_bound_of_optax():
+    """torch's plain Adam (the host's kind of `train/state.adam`) after the
+    same 100 steps: within the rule's 1e-2 lr of `adam_reference`
+    (measured 6.0e-4 lr)."""
+    d = adam_distances("cpu")
+    assert set(d) == {"plain"} and d["plain"] <= ADAM_BOUND, d
 
 
 # ---- the graphed step's refusals

@@ -19,7 +19,16 @@ seeds 0-3 on the host's CPU (host_port_full_64.json, `first_window --device
 cpu --deterministic`) and JAX's seeds 0 and 1 on the host's CPU
 (host_jax_full_64.json, this module's `main`, about 40 minutes a seed);
 `test_full_width_first_windows_two_sided` checks the files and applies
-PERF.md's two-sided rule to them.
+PERF.md's two-sided rule to them. JAX's host seeds 2 and 3 are in
+host_jax_full_64_s23.json. The sets of `tools/first_window_rule` (the
+step before and after its capture as a CUDA graph, and the five files
+between them one at a time, 64^2, B=8, on the card) are in
+seed_study/first_window_64/; the `first_window_64` tests check each
+set's layout, the bit-equalities the rule's verdict reports, and the
+committed verdict.json against its recomputation from the files. The
+128^2 card seeds are in card_128_graphed.json (the step before the
+discriminators' pool became `F.avg_pool2d`'s forward) and
+card_128_repaired.json (after).
 
 The small-width tests run one seed of each and hold its first log (step
 10) to the committed file's within 1e-2, relatively. Only the first: from the second
@@ -120,12 +129,14 @@ def test_jax_first_window_matches_the_committed_study():
 
 
 FULL_JAX = os.path.join(os.path.dirname(STUDY), "host_jax_full_64.json")
+FULL_JAX_S23 = os.path.join(os.path.dirname(STUDY), "host_jax_full_64_s23.json")
 FULL_PORT_HOST = os.path.join(os.path.dirname(STUDY), "host_port_full_64.json")
 # the port's eight card seeds at 64^2 on the eager step with a plain Adam
 # and `F.avg_pool2d`, and on the graphed step (capturable Adam, `avg_pool2`)
 FULL_PORT_CARD = os.path.join(os.path.dirname(STUDY), "card_64.json")
 FULL_PORT_CARD_NOW = os.path.join(os.path.dirname(STUDY), "card_64_graphed.json")
 FULL_PORT_CARD_128 = os.path.join(os.path.dirname(STUDY), "card_128_graphed.json")
+FULL_PORT_CARD_128_REPAIRED = os.path.join(os.path.dirname(STUDY), "card_128_repaired.json")
 JAX_TPU_64 = os.path.join(REPO, "artifacts", "train_evidence", "summary.json")  # JAX's 64^2 run
 JAX_TPU_128 = os.path.join(REPO, "artifacts", "train_evidence_128", "summary.json")
 
@@ -206,6 +217,168 @@ def test_full_width_first_windows_128_on_the_card():
     for s in evidence_seeds.seeds_present(evidence_seeds.DIR):
         with open(os.path.join(evidence_seeds.DIR, f"seed_{s}", "summary.json")) as f:
             assert port["seeds"][str(s)]["first_window"] == json.load(f)["rec_l1_first_window"], s
+
+
+def test_full_width_first_windows_128_on_the_repaired_step():
+    """card_128_repaired.json, the port's eight card seeds at 128^2 on the
+    step whose discriminators pool by `F.avg_pool2d`'s forward, made as
+    card_128_graphed.json was on the step before: `_full`'s layout,
+    deterministic with TF32 on, an NVIDIA card; every seed's logs other
+    than the earlier step's from the first (the pool's rounding moves the
+    step's bits); and JAX's one full-width 128^2 first window within the
+    eight seeds' range."""
+    port = _full(FULL_PORT_CARD_128_REPAIRED, range(8), 128)
+    assert port["deterministic"] and port["tf32"] and port["card"].startswith("NVIDIA H100")
+    before = _full(FULL_PORT_CARD_128, range(8), 128)
+    assert all(port["seeds"][s]["rec_l1"][0] != run["rec_l1"][0]
+               for s, run in before["seeds"].items())
+    with open(JAX_TPU_128) as f:
+        jax_first = json.load(f)["rec_l1_first_window"]
+    assert port["first_window"]["min"] <= jax_first <= port["first_window"]["max"], jax_first
+
+
+def test_jax_full_width_host_seeds_2_and_3():
+    """host_jax_full_64_s23.json beside host_jax_full_64.json: `_full`'s
+    layout at seeds 2 and 3, written by this module's `main` on the same
+    kind of host (JAX on its CPU, the same CPU model and JAX version), each
+    seed's seconds; its windows and the first file's are the host half of
+    the JAX set that `tools/first_window_rule` holds the port's 32 seeds to."""
+    from aglayout_tpu_torch.tools import first_window_rule
+
+    first, late = _full(FULL_JAX, [0, 1]), _full(FULL_JAX_S23, [2, 3])
+    assert late["command"] == ("JAX_PLATFORMS=cpu python -m tests.test_torch_port_seed_study "
+                               "--seeds 2 3 --out artifacts/torch_train_evidence_128/seed_study/"
+                               "host_jax_full_64_s23.json")
+    assert late["host"] == first["host"] and set(late["seconds"]) == {"2", "3"}
+    assert first_window_rule.JAX_HOST == (FULL_JAX, FULL_JAX_S23)
+    host = {f"cpu{s}": run["first_window"] for out in (first, late)
+            for s, run in out["seeds"].items()}
+    assert {k: v for k, v in first_window_rule.jax_windows().items() if k != "tpu0"} == host
+
+
+def _fw64(name):
+    from aglayout_tpu_torch.tools import first_window_rule
+
+    return os.path.join(first_window_rule.DIR, first_window_rule.SETS[name][0])
+
+
+@pytest.mark.parametrize("name", ["A0", "A1", "B0", "B1", "B2", "B12", "A0+", "A1+", "B2+", "R1",
+                                  "R1+"])
+def test_first_window_64_set_layout(name):
+    """Each set of `tools/first_window_rule`: `_full`'s layout at its seeds
+    (0-7, or 8-31 for the sets named with a +), deterministic with TF32
+    off, on an NVIDIA H100, and what the rule's own reader accepts."""
+    from aglayout_tpu_torch.tools import first_window_rule
+
+    out = _full(_fw64(name), first_window_rule.SETS[name][3])
+    assert out["deterministic"] and not out["tf32"] and out["card"].startswith("NVIDIA H100")
+    assert first_window_rule.load_set(name) == out
+
+
+def _logs(path) -> dict:
+    with open(path) as f:
+        return {s: run["rec_l1"] for s, run in json.load(f)["seeds"].items()}
+
+
+def test_first_window_64_bit_equalities():
+    """The bit-equalities that verdict.json reports, each from the files'
+    logs: A0 against card_64.json, A1 against card_64_graphed.json, B0
+    against A0, B12 against A1, R1 (the repaired step) against B1, and
+    whether B1 and B2 differ from A0."""
+    with open(os.path.join(os.path.dirname(_fw64("A0")), "verdict.json")) as f:
+        verdict = json.load(f)
+    a0, a1 = _logs(_fw64("A0")), _logs(_fw64("A1"))
+    assert verdict["bit_equal"] == {"A0=card_64": a0 == _logs(FULL_PORT_CARD),
+                                    "A1=card_64_graphed": a1 == _logs(FULL_PORT_CARD_NOW),
+                                    "B0=A0": _logs(_fw64("B0")) == a0,
+                                    "B12=A1": _logs(_fw64("B12")) == a1,
+                                    "R1=B1": _logs(_fw64("R1")) == _logs(_fw64("B1"))}
+    assert verdict["alters_bits"] == {n: _logs(_fw64(n)) != a0 for n in ("B1", "B2")}
+
+
+@pytest.mark.parametrize("step", ["current", "repaired"])
+def test_first_window_64_faithfulness(step):
+    """The rule's check 1 as measured on the card for each step (the
+    current step's file made on PR 21's step before the repair, the
+    repaired one's on this checkout's): its verdicts recomputed from the
+    committed numbers and the rule's bounds;
+    the same pooled shapes for both steps; the current step's pool a few
+    units in the last place from avg_pool2d (over the rule's 2e-7), the
+    repaired one equal to it at every shape."""
+    from aglayout_tpu_torch.tools import first_window_rule as rule
+
+    files = {k: os.path.join(rule.DIR, f) for k, f in rule.FAITHFULNESS.items()}
+    with open(files[step]) as f:
+        out = json.load(f)
+    with open(files["current"]) as f:
+        shapes = [p["shape"] for p in json.load(f)["pools"]]
+    adam = out["adam_over_lr"]
+    assert set(adam) == {"plain", "capturable", "capturable_graphed"}
+    assert out["adam_ok"] == all(adam[k] <= rule.ADAM_BOUND and adam[k] <= rule.ADAM_RATIO
+                                 * adam["plain"] for k in ("capturable", "capturable_graphed"))
+    assert out["pool_ok"] == all(p["forward_max_abs"] <= rule.POOL_ATOL and p["backward_equal"]
+                                 for p in out["pools"])
+    assert [p["shape"] for p in out["pools"]] == shapes and out["card"].startswith("NVIDIA H100")
+    assert out["adam_ok"] and all(p["backward_equal"] for p in out["pools"])
+    unequal = [p["forward_unequal"] for p in out["pools"]]
+    assert (out["pool_ok"], all(unequal), any(unequal)) == ((False, True, True) if step == "current"
+                                                           else (True, False, False))
+
+
+def test_first_window_64_sets_ran_on_their_trees():
+    """runs_call1.json and runs_call2.json: every set ran once, with rc 0,
+    on the tree the rule names (trees.json's files for the trees of a
+    commit); the repaired step's sets on the same files, which differ from
+    the current step's (A1's) in the discriminators' pool alone. The runs
+    of call 1 (A0-B12) were recorded without their files' SHA-256 and rest
+    on trees.json alone; every later run records it."""
+    from aglayout_tpu_torch.tools import first_window_rule as rule
+
+    runs = []
+    for call in ("runs_call1.json", "runs_call2.json"):
+        with open(os.path.join(rule.DIR, call)) as f:
+            runs += json.load(f)
+    with open(os.path.join(rule.DIR, "trees.json")) as f:
+        trees = json.load(f)
+    assert sorted(r["set"] for r in runs) == sorted(rule.SETS) and all(r["rc"] == 0 for r in runs)
+    by_set = {r["set"]: r for r in runs}
+    unhashed = {"A0", "A1", "B0", "B1", "B2", "B12"}
+    assert {r["set"] for r in runs if "sha256" not in r} == unhashed
+    for name, (_, commit, files, _) in rule.SETS.items():
+        if commit is not None:
+            tree = trees[by_set[name]["tree"]]
+            assert (tree["commit"], tree["from_change"]["files"]) == (commit, list(files)), name
+            if name not in unhashed:
+                assert by_set[name]["sha256"] == tree["sha256"], name
+    repaired, current = by_set["R1"]["sha256"], trees["A1"]["sha256"]
+    assert by_set["R1+"]["sha256"] == repaired
+    assert [f for f in repaired if repaired[f] != current[f]] == ["models/discriminator.py"]
+
+
+def test_first_window_rule_faithfulness_writes_this_checkouts_file(tmp_path, monkeypatch):
+    """`first_window_rule --faithfulness` takes no value and writes check 1
+    of this checkout's step, the repaired one, as faithfulness_repaired.json,
+    leaving the current step's record alone; without it the tool writes
+    verdict.json."""
+    from aglayout_tpu_torch.tools import first_window_rule as rule
+
+    monkeypatch.setattr(rule, "DIR", str(tmp_path))
+    monkeypatch.setattr(rule, "faithfulness", lambda: {"measured": True})
+    monkeypatch.setattr(rule, "study", lambda: {"verdict": "draw"})
+    assert rule.main(["--faithfulness"]) == {"measured": True}
+    assert rule.main([]) == {"verdict": "draw"}
+    assert sorted(os.listdir(tmp_path)) == ["faithfulness_repaired.json", "verdict.json"]
+    with pytest.raises(SystemExit):
+        rule.main(["--faithfulness", "current"])
+
+
+def test_first_window_64_verdict_recomputes():
+    """verdict.json is `first_window_rule.study()` of the committed files."""
+    from aglayout_tpu_torch.tools import first_window_rule
+
+    with open(os.path.join(first_window_rule.DIR, "verdict.json")) as f:
+        committed = json.load(f)
+    assert json.loads(json.dumps(first_window_rule.study())) == committed
 
 
 def _host() -> dict:

@@ -603,6 +603,7 @@ def test_step_determinism_on_the_host(tmp_path, mode):
                                  "--out", str(tmp_path / "det.json"), "--device", "cpu"], **small)
     assert out["bit_equal"] == {"2": True, "4": True}
     assert out["max_param_diff"] == {"2": 0.0, "4": 0.0}
+    assert out["differ"] == {"2": [], "4": []} and out["seed"] == 0
     assert all(a == b and len(a) == 64 for a, b in out["fingerprints"].values())
     assert out["fingerprints"]["2"] != out["fingerprints"]["4"]
     assert len(out["ms_per_step"]) == 2 and all(t > 0 for t in out["ms_per_step"])
