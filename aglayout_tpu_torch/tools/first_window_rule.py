@@ -51,6 +51,16 @@ pools: it holds the pool to `F.avg_pool2d`'s order of summation, not to
 JAX's `avg_pool` (an XLA reduce_window, with an order of its own). So
 each judged step also reports `by_distribution`, checks 2 and 3 alone:
 what its 32 seeds learn, whatever order its pool sums in.
+
+The repaired step's graph did not keep its step alive, and with it the
+step's pos-weights: its sets R1 and R1+, seeds run one after another in a
+process, could read them after the allocator had handed their memory to
+another tensor; so could A1 and A1+, PR 21's step graphed the same way.
+`kept_study` judges the repaired arithmetic on the graph that keeps its
+step (`KEPT_SETS`, F1 and F1+ in R1 and R1+'s place, the rule unchanged)
+and marks the verdicts made on sets that could read freed memory. Without
+`--faithfulness` the tool writes `DIR`/verdict.json (`study`) and
+`DIR`/verdict_kept.json (`kept_study`).
 """
 
 from __future__ import annotations
@@ -88,6 +98,13 @@ SETS = {
 }
 OLD, NEW = ("A0", "A0+"), ("A1", "A1+")
 LOCATED, REPAIRED = ("B2", "B2+"), ("R1", "R1+")
+# The repaired step with a graph that keeps its step, and with it the
+# step's pos-weights and co-occurrence matrix, alive (`train/graph.py`):
+# R1 and R1+ run again as they ran, on this checkout, and F1's seeds 6 and
+# 7 in a fresh process; name: (file in DIR, seeds)
+KEPT_SETS = {"F1": ("F1.json", tuple(range(8))), "F1+": ("F1_plus.json", tuple(range(8, 32))),
+             "F1 fresh": ("fresh_F1_s67.json", (6, 7))}
+KEPT = ("F1", "F1+")
 FAITHFULNESS = {"current": "faithfulness.json", "repaired": "faithfulness_repaired.json"}
 
 Z = 2.5
@@ -100,6 +117,8 @@ STUDY = os.path.join(REPO, "artifacts", "torch_train_evidence_128", "seed_study"
 DIR = os.path.join(STUDY, "first_window_64")
 CARD_OLD = os.path.join(STUDY, "card_64.json")
 CARD_NOW = os.path.join(STUDY, "card_64_graphed.json")
+CARD_128 = {"repaired": os.path.join(STUDY, "card_128_repaired.json"),
+            "kept": os.path.join(STUDY, "card_128_kept.json")}
 JAX_HOST = (os.path.join(STUDY, "host_jax_full_64.json"),
             os.path.join(STUDY, "host_jax_full_64_s23.json"))
 JAX_TPU = os.path.join(REPO, "artifacts", "train_evidence", "summary.json")
@@ -277,9 +296,9 @@ def _check_layout(out: dict, seeds, path: str) -> dict:
 
 
 def load_set(name: str, d: str = DIR) -> dict:
-    """The file of set `name`, its layout checked, and deterministic with
-    TF32 off on an NVIDIA card."""
-    file, _, _, seeds = SETS[name]
+    """The file of set `name` (of `SETS` or `KEPT_SETS`), its layout
+    checked, and deterministic with TF32 off on an NVIDIA card."""
+    file, seeds = KEPT_SETS[name] if name in KEPT_SETS else (SETS[name][0], SETS[name][3])
     path = os.path.join(d, file)
     with open(path) as f:
         out = json.load(f)
@@ -293,6 +312,11 @@ def same_logs(a: dict, b: dict) -> bool:
     """Whether two first-window files hold the same logs, bit for bit, for
     every seed of `a` (all of which `b` must hold)."""
     return all(a["seeds"][s]["rec_l1"] == b["seeds"][s]["rec_l1"] for s in a["seeds"])
+
+
+def parted(a: dict, b: dict) -> list:
+    """The seeds of `a` whose logs differ from `b`'s in any bit."""
+    return sorted((int(s) for s in a["seeds"] if a["seeds"][s]["rec_l1"] != b["seeds"][s]["rec_l1"]))
 
 
 def jax_windows() -> dict:
@@ -345,6 +369,11 @@ def judge(sets: dict, names, faithful: dict, jax: dict) -> dict:
                 verdict="fault" if fault else "draw")
 
 
+def _rule(new=NEW) -> dict:
+    return {"z": Z, "adam_steps": ADAM_STEPS, "adam_bound_over_lr": ADAM_BOUND,
+            "adam_ratio": ADAM_RATIO, "pool_atol": POOL_ATOL, "old": list(OLD), "new": list(new)}
+
+
 def study(d: str = DIR) -> dict:
     sets = {name: load_set(name, d) for name in SETS}
     faithful = {}
@@ -358,9 +387,7 @@ def study(d: str = DIR) -> dict:
     jax = jax_windows()
     current = judge(sets, NEW, faithful["current"], jax)
     return {
-        "rule": {"z": Z, "adam_steps": ADAM_STEPS, "adam_bound_over_lr": ADAM_BOUND,
-                 "adam_ratio": ADAM_RATIO, "pool_atol": POOL_ATOL, "old": list(OLD),
-                 "new": list(NEW)},
+        "rule": _rule(),
         "bit_equal": {"A0=card_64": same_logs(sets["A0"], card_old),
                       "A1=card_64_graphed": same_logs(sets["A1"], card_now),
                       "B0=A0": same_logs(sets["B0"], sets["A0"]),
@@ -381,17 +408,56 @@ def study(d: str = DIR) -> dict:
     }
 
 
+def kept_study(d: str = DIR) -> dict:
+    """The rule, unchanged, on the step whose graph keeps its step alive:
+    F1 and F1+ in the place of R1 and R1+, which ran on the same arithmetic
+    with a graph that read the freed pos-weights; check 1 is the repaired
+    step's (the graph changes no arithmetic). Beside it: F1 against the
+    eager B1 (the same arithmetic) and the fresh process's seeds, and the
+    seeds whose logs the repair changed, at 64^2 (R1, R1+) and at 128^2
+    (`card_128_repaired.json` against `card_128_kept.json`, TF32 on)."""
+    sets = {name: load_set(name, d) for name in list(SETS) + list(KEPT_SETS)}
+    with open(os.path.join(d, FAITHFULNESS["repaired"])) as f:
+        faithful = json.load(f)
+    card_128 = {}
+    for step, path in CARD_128.items():
+        with open(path) as f:
+            card_128[step] = json.load(f)
+        if (card_128[step]["image_size"], card_128[step]["seeds"].keys()) != \
+                (128, {str(s) for s in range(8)}) or not card_128[step]["tf32"]:
+            raise ValueError(f"{path}: not the 128^2 TF32 first windows of seeds 0-7")
+    kept = judge(sets, KEPT, faithful, jax_windows())
+    return {
+        "rule": _rule(KEPT),
+        "bit_equal": {"F1=B1": same_logs(sets["F1"], sets["B1"]),
+                      "F1 fresh=F1": same_logs(sets["F1 fresh"], sets["F1"])},
+        "parted": {"R1": parted(sets["R1"], sets["F1"]), "R1+": parted(sets["R1+"], sets["F1+"]),
+                   "card_128_repaired": parted(card_128["repaired"], card_128["kept"])},
+        "means": {n: sets[n]["first_window"]["mean"] for n in KEPT_SETS} | {
+            f"card_128_{k}": v["first_window"]["mean"] for k, v in card_128.items()},
+        "repaired": judge(sets, REPAIRED, faithful, jax_windows()),
+        # the graphed sets that ran on a graph that did not keep its step:
+        # verdict.json's "current" and this file's "repaired" rest on them
+        "read_freed_memory": {"verdict.json current": list(NEW), "repaired": list(REPAIRED)},
+        "kept": kept,
+        "cards": sorted({sets[n]["card"] for n in KEPT_SETS} | {faithful["card"]}
+                        | {v["card"] for v in card_128.values()}),
+        "verdict": kept["verdict"],
+    }
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--faithfulness", action="store_true",
                    help="measure check 1 of this checkout's (the repaired) step on the card "
                         "and write its file")
     args = p.parse_args(argv)
-    out = faithfulness() if args.faithfulness else study()
+    out = ({FAITHFULNESS["repaired"]: faithfulness()} if args.faithfulness
+           else {"verdict.json": study(), "verdict_kept.json": kept_study()})
     os.makedirs(DIR, exist_ok=True)
-    name = FAITHFULNESS["repaired"] if args.faithfulness else "verdict.json"
-    with open(os.path.join(DIR, name), "w") as f:
-        json.dump(out, f, indent=2)
+    for name, record in out.items():
+        with open(os.path.join(DIR, name), "w") as f:
+            json.dump(record, f, indent=2)
     print(json.dumps(out))
     return out
 

@@ -23,7 +23,13 @@ the eager step's contract, `(state, batch) -> (state, metrics)`, bound to
     state's Adams have no moments before their first step: they get zero
     moments and a count of 0, which is what torch's first eager step finds;
   * the metrics are static buffers that the next replay overwrites: read
-    or clone them before it.
+    or clone them before it;
+  * a CUDA graph reads by address, and owns only what it allocated in its
+    own pool during the capture. Everything else it reads must outlive it:
+    the state's tensors, which the caller holds, and what `step` alone
+    owns (`make_train_step`'s `matrix` and `pos_weight`). So the graph
+    keeps `step` alive for as long as it lives, and a caller may drop its
+    own reference (`step = GraphedTrainStep(step, ...)`).
 
 In deterministic mode (`utils/device.deterministic`) a replay equals the
 eager step bit for bit. It raises, and never runs the eager step in its
@@ -91,6 +97,7 @@ class GraphedTrainStep:
             if not all(g["capturable"] for g in opt.param_groups):
                 raise RuntimeError(f"graphed train step: the {name} Adam is not capturable")
         self.state = state
+        self.step = step  # its tensors are read by every replay
         self.layout = _layout(batch)
         try:
             self._capture(step, batch)
@@ -107,12 +114,12 @@ class GraphedTrainStep:
         try:
             # as an eager run's first steps: on the current stream, on the
             # caller's batch itself (the static inputs are cloned after), the
-            # snapshot on the host. Warmed up on a side stream (64^2), or on a
-            # clone of the batch after a snapshot on the card (128^2, TF32),
-            # the graph parted at step 2 from an eager run in another
-            # process, though it equalled one in its own; an eager run with
-            # those clones on the card, or stepping on a clone, did not part
-            # (which library choice differs is not known)
+            # snapshot on the host. Warmed up on a clone of the batch after a
+            # snapshot on the card, a graph that let its step go parted from
+            # the eager step at step 2 (128^2, TF32, a fresh process): it read
+            # the step's freed pos-weights. With the step kept (`self.step`)
+            # that warm-up equals the eager step too; whether a warm-up on a
+            # side stream (64^2) failed for the same reason is not known
             for _ in range(WARMUP):
                 step(state, batch)
             self.static = {k: v.clone() for k, v in batch.items()}

@@ -48,7 +48,8 @@ raises, and the run then exits non-zero without printing a result:
      them; K6 and K7 must equal their plain versions to 1e-6
      in f32, their integer sums being exact, and K7 bit for bit in both
      dtypes (with c6's weights packed once); timed with CUDA events (the
-     span of 20 calls, the host's gaps included) and, in bf16, by the
+     span of 20 calls, 10 of a plain version, the host's gaps included)
+     and, in bf16, by the
      device time of their launches under torch.profiler, which the kernels
      line reports, beside the bound computed from the shapes and, for v6,
      from the data; v6 equal to K5 bit for bit on random inputs, on the
@@ -195,7 +196,8 @@ raises, and the run then exits non-zero without printing a result:
      keys, finite values, the train iterator drawn 20 times (none
      dropped), and at every point K1 and K2 three launches an eval forward
      and none in the steps; (c) `bench_train_table` for 64:8 bf16 through
-     its subprocess: one row, finite steps/s, the card's name; (d)
+     its subprocess (started with the phase, beside (a) and (b)): one row,
+     finite steps/s, the card's name; (d)
      `import_reference_artifacts` on a vocab and a `torch.save`d matrix
      that the phase writes: the .npy equals the matrix; (e) `train_evidence`
      resumed (f32 with TF32 off, `--deterministic`, a log every 10 steps):
@@ -221,7 +223,13 @@ raises, and the run then exits non-zero without printing a result:
      step, and one more of each under torch's sync debug mode, whose
      host waits it counts; after them every parameter, buffer, Adam moment
      and count, the draws' generator and the step `torch.equal`; no kernel
-     of the port launched; steps/s of each by CUDA events over steps 3-20.
+     of the port launched; steps/s of each by CUDA events over steps 3-20;
+     then at 64^2 a third fresh state's graph of a step that nothing but
+     the graph references (`PoolChurn`): the step's own tensors (its
+     co-occurrence matrix and the attribute pos-weights) alive and held by
+     the allocator, and 20 replays, with the caching allocator's free
+     blocks of up to 1 MB filled with NaN and a quarter of them turned over
+     after each replay, bit-equal to the eager run above at every step.
 In every full-width bf16 run of phases 3-6, K1 and K2 must take their
 tensor-core kernels (`route_launches`); the build phase holds the
 shared-memory sizes the route predicates compute in Python against the
@@ -236,6 +244,7 @@ import contextlib
 import functools
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -308,6 +317,9 @@ SWITCHES = ("use_trunk_kernel", "use_head_kernel", "use_typed_kernel", "use_appl
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+PLAIN_ITERS = 10  # the plain versions' calls a CUDA-event span (2-82 ms a call)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -542,6 +554,21 @@ def reap(*procs) -> None:
         if p.poll() is None:
             p.kill()
             p.communicate()
+
+
+def kill_children(marker: str) -> None:
+    """Kill each child process of this one whose command line holds
+    `marker` (a child that a library started and holds the handle of)."""
+    for pid in filter(str.isdigit, os.listdir("/proc")):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read()
+            if ppid == os.getpid() and marker.encode() in cmd:
+                os.kill(int(pid), signal.SIGKILL)
+        except (OSError, IndexError, ValueError):
+            continue  # ended meanwhile
 
 
 def phase_device():
@@ -932,10 +959,10 @@ def phase_kernels(model64, model128, model_int8):
                         raise AssertionError(f"typed v3 {dt}: not K5's bits on the inner grid")
                     log(f"[kernel] typed_c3_expand_v3 {str(dt)[6:]} equals typed_c3_expand on "
                         "the inner 12 x 12 grid bit for bit")
-                ms_plain_a = cuda_ms(lambda: plain(*args))
+                ms_plain_a = cuda_ms(lambda: plain(*args), iters=PLAIN_ITERS)
                 ms_a = cuda_ms(lambda: kernel(*args))
                 ms_b = cuda_ms(lambda: kernel(*args))
-                ms_plain_b = cuda_ms(lambda: plain(*args))
+                ms_plain_b = cuda_ms(lambda: plain(*args), iters=PLAIN_ITERS)
                 on_device = wrapper_ms(name, lambda: kernel(*args)) if dt == torch.bfloat16 else None
             ms, ms_plain = (ms_a + ms_b) / 2, (ms_plain_a + ms_plain_b) / 2
             limit = 1e-6 if name in exact and dt == torch.float32 else tol[dt]
@@ -2388,6 +2415,19 @@ def phase_tools(smi: str):
     root = Path(__file__).resolve().parent / "build" / "chip_smoke_tools"
     shutil.rmtree(root, ignore_errors=True)
     started = evidence_start(root)  # (e), beside (a)-(d)
+    bench = {}  # (c): its subprocess runs beside (a) and (b)
+
+    def bench_table():
+        try:
+            t = time.perf_counter()
+            bench["table"] = bench_train_table.table("64:8", str(root / "bench.json"), 5, "cuda",
+                                                     computes=("bf16",))
+            bench["seconds"] = time.perf_counter() - t
+        except Exception as e:
+            bench["error"] = e
+
+    bench_thread = threading.Thread(target=bench_table, daemon=True)
+    bench_thread.start()
     try:
         # ---- (a) train_evidence: 200 steps, f32 with TF32 off
         out = root / "evidence"
@@ -2410,7 +2450,7 @@ def phase_tools(smi: str):
             f"{k} {quarters[k][0]:.4f} -> {quarters[k][1]:.4f} against "
             f"{JAX_FIRST_200[k][0]:.4f} -> {JAX_FIRST_200[k][1]:.4f}" for k in JAX_FIRST_200)
         log(f"[tools] (a) train_evidence 64^2 B=8 f32 (TF32 off), 200 steps (beside (e)'s "
-            f"children) in {run_s:.1f} s "
+            f"children and (c)'s subprocess) in {run_s:.1f} s "
             f"({summary['steps_per_sec']:.3f} steps/s, {1e3 / summary['steps_per_sec']:.1f} "
             f"ms/step with the logging and the sample grid's forward): rec L1 first window "
             f"{summary['rec_l1_first_window']:.4f}, last {summary['rec_l1_last_window']:.4f} "
@@ -2493,12 +2533,16 @@ def phase_tools(smi: str):
 
         # ---- (c) bench_train_table: one configuration through its subprocess
         t1 = time.perf_counter()
-        table = bench_train_table.table("64:8", str(root / "bench.json"), 5, "cuda",
-                                        computes=("bf16",))
+        bench_thread.join(timeout=900)
+        if bench_thread.is_alive() or "error" in bench:
+            raise AssertionError(f"tools (c): bench_train_table did not finish: "
+                                 f"{bench.get('error')}")
+        table = bench["table"]
         with open(root / "bench.json") as f:
             written = json.load(f)
-        log(f"[tools] (c) bench_train_table 64:8 bf16 in a subprocess, "
-            f"{time.perf_counter() - t1:.1f} s: {table}; keys {sorted(written)}")
+        log(f"[tools] (c) bench_train_table 64:8 bf16 in a subprocess started with the phase, "
+            f"beside (a) and (b): {bench['seconds']:.1f} s, {time.perf_counter() - t1:.1f} s "
+            f"after (b): {table}; keys {sorted(written)}")
         if len(table) != 1 or not np.isfinite(table[0]["steps_per_sec"]) \
                 or table[0]["steps_per_sec"] <= 0 or table[0]["card"] != smi \
                 or written.get("steps_per_sec_64_b8_bf16") != table[0]["steps_per_sec"]:
@@ -2532,8 +2576,14 @@ def phase_tools(smi: str):
         t1 = time.perf_counter()
         evidence_resume(started, root, smi)
         log(f"[tools] (e) done in {time.perf_counter() - t1:.1f} s")
+    except BaseException:
+        while bench_thread.is_alive():  # (c)'s subprocess, and each retry, ended at once
+            kill_children("aglayout_tpu_torch.tools.bench_train_table")
+            bench_thread.join(timeout=1)
+        raise
     finally:
         reap(*started[0].values())
+        bench_thread.join(timeout=900)  # (c)'s subprocess ends before its files go
         shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     log(f"[tools] phase done in {time.perf_counter() - t0:.1f} s")
@@ -2674,6 +2724,130 @@ def evidence_resume(started: tuple, root, smi: str, size: int = 64) -> None:
 GRAPH_STEPS = 20  # phase 17's steps of each kind
 
 
+def closure_tensors(fn) -> dict:
+    """The CUDA tensors that the function `fn` holds in its closure, and
+    the closures of the functions there, by a path of their names (each
+    tensor once)."""
+    seen, out = set(), {}
+
+    def walk(v, path):
+        if isinstance(v, torch.Tensor):
+            if v.is_cuda and id(v) not in seen:
+                seen.add(id(v))
+                out[path] = v
+        elif isinstance(v, (list, tuple)):
+            for i, x in enumerate(v):
+                walk(x, f"{path}[{i}]")
+        elif hasattr(v, "__code__") and hasattr(v, "__closure__"):
+            if id(v) not in seen:
+                seen.add(id(v))
+                for name, cell in zip(v.__code__.co_freevars, v.__closure__ or ()):
+                    walk(cell.cell_contents, f"{path}.{name}")
+
+    walk(fn, "step")
+    return out
+
+
+def own_tensors(step, state) -> dict:
+    """`closure_tensors(step)` less those of `state` (its nets'
+    parameters): what the step alone owns."""
+    theirs = {id(p) for _, m in state.models.items() for p in m.parameters()}
+    return {k: v for k, v in closure_tensors(step).items() if id(v) not in theirs}
+
+
+def unheld(ranges: dict) -> list:
+    """The names of `ranges` ({name: (address, bytes)}) that no block the
+    caching allocator has handed out (`active_allocated`) covers."""
+    held = []
+    for seg in torch.cuda.memory_snapshot():
+        addr = seg["address"]
+        for b in seg["blocks"]:
+            addr = b.get("address", addr)
+            if b["state"] == "active_allocated":
+                held.append((addr, addr + b["size"]))
+            addr += b["size"]
+    return [k for k, (p, n) in ranges.items() if not any(a <= p and p + n <= e for a, e in held)]
+
+
+class PoolChurn:
+    """What a caller's own allocations do to memory that a CUDA graph reads
+    but did not allocate: every free block of the caching allocator's small
+    pool (requests up to 1 MB) is handed out to a tensor of NaN, and
+    `turn()` frees a quarter of them and allocates as many of sizes drawn
+    from 512 B to 1 MB."""
+
+    SIZES = [512 << i for i in range(12)]  # 512 B ... 1 MB
+
+    def __init__(self, seed: int = 0):
+        self.rng = np.random.RandomState(seed)
+        self.held = []
+        # largest first; best fit takes each request from the smallest free
+        # block that holds it, and reserves a new segment only when none
+        # does: after the 512-B round no free block is left
+        for size in reversed(self.SIZES):
+            while True:
+                before = torch.cuda.memory_reserved()
+                self.held += [self.nan(size) for _ in range(32)]
+                if torch.cuda.memory_reserved() > before:
+                    break
+
+    @staticmethod
+    def nan(nbytes: int):
+        return torch.full((nbytes // 4,), float("nan"), device="cuda")
+
+    def turn(self):
+        drop = set(self.rng.choice(len(self.held), len(self.held) // 4, replace=False).tolist())
+        self.held = [t for i, t in enumerate(self.held) if i not in drop]
+        self.held += [self.nan(int(self.rng.choice(self.SIZES))) for _ in drop]
+
+
+def differing(want: dict, got: dict) -> list:
+    """The metrics and grids of two steps' outputs that differ in any bit."""
+    bad = [k for k in want if k != "images" and not torch.equal(want[k], got[k])]
+    return bad + [k for k in want["images"] if not torch.equal(want["images"][k],
+                                                              got["images"][k])]
+
+
+def graph_of_a_dropped_step(args, corpus, want: list, label: str, smi: str):
+    """Phase 17 (b): a graph captured from a step that nothing else
+    references, replayed in a churned pool, against `want`, the eager run's
+    outputs from a fresh state of the same seed on the same batches."""
+    import gc
+    import weakref
+
+    from aglayout_tpu_torch.tools.train_evidence import setup
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
+
+    _, _, _, state, step = setup(args)
+    own = own_tensors(step, state)
+    refs = {k: weakref.ref(v) for k, v in own.items()}
+    ranges = {k: (v.data_ptr(), v.untyped_storage().nbytes()) for k, v in own.items()}
+    graphed = GraphedTrainStep(step, state, corpus[0])
+    del step, own
+    gc.collect()
+    dead = [k for k, r in refs.items() if r() is None]
+    loose = unheld({k: v for k, v in ranges.items() if k not in dead})
+    churn = PoolChurn()
+    n_churn = len(churn.held)
+    diverged = []
+    for i in range(len(want)):
+        got = graphed(state, corpus[i % len(corpus)])[1]
+        bad = differing(want[i], got)
+        if bad:
+            diverged.append((i + 1, bad))
+        churn.turn()
+    torch.cuda.synchronize()
+    log(f"[graph] {label}, the step dropped: its own tensors "
+        f"{ {k: ranges[k][1] for k in ranges} } (bytes) alive after gc: {not dead} {dead}, "
+        f"held by the allocator: {not loose} {loose}; {len(want)} replays with the free blocks "
+        f"filled with NaN ({n_churn} tensors, a quarter turned over after each replay), every "
+        f"metric and grid bit-equal to the eager run at every step: {not diverged} "
+        f"{diverged[:3]} | {smi}")
+    if not refs or dead or loose or diverged:
+        raise AssertionError(f"graph {label}: a graph of a dropped step lost its tensors "
+                             f"({dead}, not held {loose}) or parted from eager ({diverged[:3]})")
+
+
 def phase_graph(smi: str):
     """Phase 17: the graphed train step against the eager one, bit for bit."""
     from aglayout_tpu_torch.profile_generate import sync_sites
@@ -2699,7 +2873,7 @@ def phase_graph(smi: str):
             undone += [f"opt.{n}" for n, opt in graph_state.opt.items()
                        if any(v.any() for s in opt.state.values() for v in s.values())]
             runs = (("eager", eager, eager_state), ("graphed", graphed, graph_state))
-            times, diverged = {name: [] for name, _, _ in runs}, []
+            times, diverged, eager_out = {name: [] for name, _, _ in runs}, [], []
             launch_counts(reset=True)
             for i in range(GRAPH_STEPS):
                 out = {}
@@ -2709,9 +2883,8 @@ def phase_graph(smi: str):
                     out[name] = fn(state, corpus[i % len(corpus)])[1]
                     ev[1].record()
                     times[name].append(ev)
-                a, b = out["eager"], out["graphed"]
-                bad = [k for k in a if k != "images" and not torch.equal(a[k], b[k])]
-                bad += [k for k in a["images"] if not torch.equal(a["images"][k], b["images"][k])]
+                eager_out.append(out["eager"])
+                bad = differing(out["eager"], out["graphed"])
                 if bad:
                     diverged.append((i + 1, bad))
             waits = {name: sum(sync_sites(lambda fn=fn, st=state: fn(st, corpus[0])).values())
@@ -2732,7 +2905,11 @@ def phase_graph(smi: str):
         if undone or diverged or bad_state or launches or waits["graphed"] or waits["eager"]:
             raise AssertionError(f"graph {label}: the graphed step is not the eager step, a "
                                  f"kernel launched ({launches}) or the host waited ({waits})")
-        del eager_state, graph_state, eager, graphed, step, corpus
+        del eager_state, graph_state, eager, graphed, step
+        if size == 64:
+            with deterministic(), tf32(False):
+                graph_of_a_dropped_step(args, corpus, eager_out, label, smi)
+        del corpus, eager_out
         torch.cuda.empty_cache()
     log(f"[graph] phase done in {time.perf_counter() - t0:.1f} s")
 

@@ -1220,12 +1220,6 @@ def _undone(fresh, captured) -> list:
                   if any(v.any() for s in opt.state.values() for v in s.values())]
 
 
-def _same_metrics(a, b) -> list:
-    """The metrics and grids of two steps that differ in any bit."""
-    bad = [k for k in a if k != "images" and not torch.equal(a[k], b[k])]
-    return bad + [k for k in a["images"] if not torch.equal(a["images"][k], b["images"][k])]
-
-
 @pytest.mark.parametrize("size", [64, 128])
 def test_graphed_step_equals_eager_bit_for_bit(cuda, size):
     """From two fresh states of one seed, deterministic, f32 with TF32 off
@@ -1234,6 +1228,8 @@ def test_graphed_step_equals_eager_bit_for_bit(cuda, size):
     (capturable) step bit for bit: every metric and grid at every step, and
     after them every parameter, buffer (BN statistics, spectral-norm u and
     v), Adam moment and count, the draws' generator and the step."""
+    from chip_smoke import differing
+
     from aglayout_tpu_torch.train.compare import state_mismatches
     from aglayout_tpu_torch.train.graph import GraphedTrainStep
     from aglayout_tpu_torch.utils.device import deterministic, tf32
@@ -1246,7 +1242,7 @@ def test_graphed_step_equals_eager_bit_for_bit(cuda, size):
         for i in range(GRAPH_STEPS):
             _, want = eager(eager_state, corpus[i % len(corpus)])
             _, got = graphed(graph_state, corpus[i % len(corpus)])
-            assert _same_metrics(want, got) == [], i
+            assert differing(want, got) == [], i
         assert eager_state.step == graph_state.step == GRAPH_STEPS
         assert state_mismatches(eager_state, graph_state) == []
 
@@ -1277,10 +1273,12 @@ def test_graphed_step_in_a_fresh_process_equals_eager(cuda, size):
     """`train_evidence`'s set-up (32 corpus batches), deterministic, at 64^2
     with TF32 off and at 128^2 with it on (the modes the evidence runs),
     20 steps eager in one new process and graphed in another: every metric
-    at every step equal. Warmed up on a side stream (64^2), or on a clone
-    of the batch after a snapshot on the card (128^2), the graph parted
-    from the other process's eager run at step 2, though it equalled an
-    eager run in its own process."""
+    at every step equal. The script drops its step once the graph is
+    captured (`step = GraphedTrainStep(step, ...)`). A graph that did not
+    keep its step then read the step's freed pos-weights: warmed up on a
+    clone of the batch after a snapshot on the card (128^2), it parted
+    from the eager run at step 2, and equalled it with the step kept
+    alive (`train/graph.py`)."""
     import json
     import os
     import subprocess
@@ -1292,6 +1290,65 @@ def test_graphed_step_in_a_fresh_process_equals_eager(cuda, size):
         text=True, check=True, timeout=600).stdout.splitlines()[-1])
         for kind in ("eager", "graphed")}
     assert rows["eager"] == rows["graphed"]
+
+
+def test_graph_keeps_the_steps_tensors_alive(cuda):
+    """64^2, TF32 off: a graph reads by address, so what only the step owns
+    (`make_train_step`'s co-occurrence matrix and attribute pos-weights)
+    must live as long as the graph. With the caller's `step` dropped and
+    the garbage collected, weak references to every CUDA tensor of the
+    step's closure are alive, and each lies in a block that the caching
+    allocator has handed out."""
+    import gc
+    import weakref
+
+    from chip_smoke import closure_tensors, own_tensors, unheld
+
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
+    from aglayout_tpu_torch.utils.device import deterministic
+
+    with deterministic():
+        corpus, state, step = _graph_setup(64)
+        tensors = closure_tensors(step)
+        assert set(own_tensors(step, state)) == {"step.g_losses.pos_weight", "step.matrix"}
+        refs = {k: weakref.ref(v) for k, v in tensors.items()}
+        ranges = {k: (v.data_ptr(), v.untyped_storage().nbytes()) for k, v in tensors.items()}
+        graphed = GraphedTrainStep(step, state, corpus[0])
+        del step, tensors
+        gc.collect()
+        assert [k for k, r in refs.items() if r() is None] == []
+        assert unheld(ranges) == []
+        graphed(state, corpus[1])
+
+
+@pytest.mark.parametrize("size", [64, 128])
+def test_graph_survives_a_churned_pool(cuda, size):
+    """Deterministic, 64^2 with TF32 off and 128^2 with it on: a graph of
+    a step that nothing else references, replayed while the caching
+    allocator's free blocks of up to 1 MB are handed out to tensors of NaN
+    (`chip_smoke.PoolChurn`, a quarter turned over after each replay),
+    against the eager step on a twin state: every metric and grid equal at
+    each of 20 steps. A graph that lets the step's own tensors go reads
+    NaN in their place."""
+    import gc
+
+    from chip_smoke import PoolChurn, differing
+
+    from aglayout_tpu_torch.train.graph import GraphedTrainStep
+    from aglayout_tpu_torch.utils.device import deterministic, tf32
+
+    with deterministic(), tf32(size == 128):
+        corpus, eager_state, eager = _graph_setup(size)
+        _, graph_state, step = _graph_setup(size)
+        graphed = GraphedTrainStep(step, graph_state, corpus[0])
+        del step
+        gc.collect()
+        churn = PoolChurn()
+        for i in range(GRAPH_STEPS):
+            _, want = eager(eager_state, corpus[i % len(corpus)])
+            _, got = graphed(graph_state, corpus[i % len(corpus)])
+            assert differing(want, got) == [], i
+            churn.turn()
 
 
 def test_train_evidence_resumes_at_128_tf32_bit_for_bit(cuda, tmp_path):

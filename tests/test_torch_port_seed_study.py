@@ -237,6 +237,28 @@ def test_full_width_first_windows_128_on_the_repaired_step():
     assert port["first_window"]["min"] <= jax_first <= port["first_window"]["max"], jax_first
 
 
+def test_full_width_first_windows_128_on_the_kept_step():
+    """card_128_kept.json, the eight 128^2 card seeds on the graph that
+    keeps its step, made by card_128_repaired.json's command: `_full`'s
+    layout, deterministic with TF32 on, an NVIDIA card; the seeds whose
+    logs differ from card_128_repaired.json's those verdict_kept.json
+    names; and JAX's one full-width 128^2 first window within the eight
+    seeds' range."""
+    from aglayout_tpu_torch.tools import first_window_rule as rule
+
+    port = _full(rule.CARD_128["kept"], range(8), 128)
+    assert port["deterministic"] and port["tf32"] and port["card"].startswith("NVIDIA H100")
+    before = _full(FULL_PORT_CARD_128_REPAIRED, range(8), 128)
+    with open(os.path.join(rule.DIR, "verdict_kept.json")) as f:
+        parted = json.load(f)["parted"]["card_128_repaired"]
+    assert parted == sorted(int(s) for s, run in before["seeds"].items()
+                            if run["rec_l1"] != port["seeds"][s]["rec_l1"])
+    assert parted == KEPT_PARTED_128
+    with open(JAX_TPU_128) as f:
+        jax_first = json.load(f)["rec_l1_first_window"]
+    assert port["first_window"]["min"] <= jax_first <= port["first_window"]["max"], jax_first
+
+
 def test_jax_full_width_host_seeds_2_and_3():
     """host_jax_full_64_s23.json beside host_jax_full_64.json: `_full`'s
     layout at seeds 2 and 3, written by this module's `main` on the same
@@ -256,21 +278,37 @@ def test_jax_full_width_host_seeds_2_and_3():
     assert {k: v for k, v in first_window_rule.jax_windows().items() if k != "tpu0"} == host
 
 
-def _fw64(name):
-    from aglayout_tpu_torch.tools import first_window_rule
+# the seeds whose logs the graph that keeps its step changed: at 64^2 those
+# whose freed pos-weights the probe found overwritten (R1's 6 and 7), at
+# 128^2 none (PERF.md §6)
+KEPT_PARTED_R1 = [6, 7]
+KEPT_PARTED_128 = []
 
-    return os.path.join(first_window_rule.DIR, first_window_rule.SETS[name][0])
+
+def _fw64_set(name) -> tuple:
+    """(path, seeds) of a set of `tools/first_window_rule`'s `SETS` or
+    `KEPT_SETS`."""
+    from aglayout_tpu_torch.tools import first_window_rule as rule
+
+    file, seeds = rule.KEPT_SETS[name] if name in rule.KEPT_SETS else (rule.SETS[name][0],
+                                                                       rule.SETS[name][3])
+    return os.path.join(rule.DIR, file), seeds
+
+
+def _fw64(name):
+    return _fw64_set(name)[0]
 
 
 @pytest.mark.parametrize("name", ["A0", "A1", "B0", "B1", "B2", "B12", "A0+", "A1+", "B2+", "R1",
-                                  "R1+"])
+                                  "R1+", "F1", "F1+", "F1 fresh"])
 def test_first_window_64_set_layout(name):
     """Each set of `tools/first_window_rule`: `_full`'s layout at its seeds
-    (0-7, or 8-31 for the sets named with a +), deterministic with TF32
-    off, on an NVIDIA H100, and what the rule's own reader accepts."""
+    (0-7, or 8-31 for the sets named with a +, 6 and 7 for F1's fresh
+    process), deterministic with TF32 off, on an NVIDIA H100, and what the
+    rule's own reader accepts."""
     from aglayout_tpu_torch.tools import first_window_rule
 
-    out = _full(_fw64(name), first_window_rule.SETS[name][3])
+    out = _full(*_fw64_set(name))
     assert out["deterministic"] and not out["tf32"] and out["card"].startswith("NVIDIA H100")
     assert first_window_rule.load_set(name) == out
 
@@ -359,15 +397,21 @@ def test_first_window_rule_faithfulness_writes_this_checkouts_file(tmp_path, mon
     """`first_window_rule --faithfulness` takes no value and writes check 1
     of this checkout's step, the repaired one, as faithfulness_repaired.json,
     leaving the current step's record alone; without it the tool writes
-    verdict.json."""
+    verdict.json and verdict_kept.json."""
     from aglayout_tpu_torch.tools import first_window_rule as rule
 
     monkeypatch.setattr(rule, "DIR", str(tmp_path))
     monkeypatch.setattr(rule, "faithfulness", lambda: {"measured": True})
     monkeypatch.setattr(rule, "study", lambda: {"verdict": "draw"})
-    assert rule.main(["--faithfulness"]) == {"measured": True}
-    assert rule.main([]) == {"verdict": "draw"}
-    assert sorted(os.listdir(tmp_path)) == ["faithfulness_repaired.json", "verdict.json"]
+    monkeypatch.setattr(rule, "kept_study", lambda: {"verdict": "kept"})
+    assert rule.main(["--faithfulness"]) == {"faithfulness_repaired.json": {"measured": True}}
+    assert sorted(os.listdir(tmp_path)) == ["faithfulness_repaired.json"]
+    assert rule.main([]) == {"verdict.json": {"verdict": "draw"},
+                             "verdict_kept.json": {"verdict": "kept"}}
+    assert sorted(os.listdir(tmp_path)) == ["faithfulness_repaired.json", "verdict.json",
+                                            "verdict_kept.json"]
+    with open(tmp_path / "verdict_kept.json") as f:
+        assert json.load(f) == {"verdict": "kept"}
     with pytest.raises(SystemExit):
         rule.main(["--faithfulness", "current"])
 
@@ -379,6 +423,46 @@ def test_first_window_64_verdict_recomputes():
     with open(os.path.join(first_window_rule.DIR, "verdict.json")) as f:
         committed = json.load(f)
     assert json.loads(json.dumps(first_window_rule.study())) == committed
+
+
+def test_first_window_64_kept_verdict_recomputes():
+    """verdict_kept.json is `first_window_rule.kept_study()` of the
+    committed files: the rule of `study`, its constants unchanged, on F1 and F1+
+    (the graph that keeps its step alive) in R1 and R1+'s place, its rule
+    block naming the sets it judged, and the verdicts made on the graphed
+    sets that could read freed memory marked so."""
+    from aglayout_tpu_torch.tools import first_window_rule as rule
+
+    with open(os.path.join(rule.DIR, "verdict_kept.json")) as f:
+        committed = json.load(f)
+    assert json.loads(json.dumps(rule.kept_study())) == committed
+    assert committed["rule"] == dict(json.loads(json.dumps(rule.study()))["rule"],
+                                     new=["F1", "F1+"])
+    assert committed["kept"]["sets"] == committed["rule"]["new"]
+    assert committed["read_freed_memory"] == {"verdict.json current": ["A1", "A1+"],
+                                              "repaired": committed["repaired"]["sets"]}
+    assert committed["verdict"] == committed["kept"]["verdict"]
+
+
+def test_first_window_64_kept_bit_equalities():
+    """From the files' logs, what verdict_kept.json reports beside the
+    rule: F1, on the graph that keeps its step, equals the eager B1 (the
+    same arithmetic) at every seed; F1's seeds 6 and 7 equal a fresh
+    process's; and the seeds whose logs the repair changed are those the
+    freed-memory probe found read from overwritten memory: 6 and 7 of R1
+    (`PERF.md` §6)."""
+    with open(os.path.join(os.path.dirname(_fw64("F1")), "verdict_kept.json")) as f:
+        verdict = json.load(f)
+    f1, f1p = _logs(_fw64("F1")), _logs(_fw64("F1+"))
+    fresh = _logs(_fw64("F1 fresh"))
+    assert f1 == _logs(_fw64("B1"))
+    assert fresh == {s: f1[s] for s in ("6", "7")}
+    assert verdict["bit_equal"] == {"F1=B1": True, "F1 fresh=F1": True}
+    r1, r1p = _logs(_fw64("R1")), _logs(_fw64("R1+"))
+    parted = {"R1": sorted(int(s) for s in r1 if r1[s] != f1[s]),
+              "R1+": sorted(int(s) for s in r1p if r1p[s] != f1p[s])}
+    assert {k: verdict["parted"][k] for k in parted} == parted
+    assert parted["R1"] == KEPT_PARTED_R1
 
 
 def _host() -> dict:
